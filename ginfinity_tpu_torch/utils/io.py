@@ -1,0 +1,148 @@
+"""Tables, run logs and input validation.
+
+Port of ``ginfinity_tpu/utils/io.py`` over the standard library's
+``csv`` module: the run log is the same append-style ``key: value``
+block log written next to every pipeline output, with a header of
+timestamp, argv and system info.
+
+Cells are kept as the text the input holds; an empty cell is missing
+(``None``) and is written back as ``NaN``, as the JAX package writes a
+missing value.
+"""
+
+from __future__ import annotations
+
+import csv
+import os
+import platform
+import sys
+from datetime import datetime
+
+
+class Table:
+    """A CSV/TSV table: ``columns`` in file order and one dict per row."""
+
+    def __init__(self, columns: list[str], rows: list[dict]):
+        self.columns = columns
+        self.rows = rows
+
+    def column(self, name: str) -> list:
+        return [r[name] for r in self.rows]
+
+
+def read_table(path: str) -> Table:
+    """Read a CSV, or a TSV when the name ends in ``.tsv``; blank lines
+    are skipped."""
+    sep = "\t" if path.endswith(".tsv") else ","
+    with open(path, newline="") as f:
+        reader = csv.reader(f, delimiter=sep)
+        columns = next(reader, [])
+        rows = []
+        for cells in reader:
+            if not cells:
+                continue
+            cells = cells + [""] * (len(columns) - len(cells))
+            rows.append({c: (v if v != "" else None) for c, v in zip(columns, cells)})
+    return Table(columns, rows)
+
+
+def write_tsv(path: str, columns: list[str], rows: list[dict]) -> None:
+    """Write rows as a TSV with a header; a missing cell reads ``NaN``."""
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f, delimiter="\t", lineterminator="\n")
+        w.writerow(columns)
+        for r in rows:
+            w.writerow(["NaN" if r.get(c) is None else r[c] for c in columns])
+
+
+def get_system_info() -> dict:
+    import torch
+
+    info = {
+        "Operating System": f"{platform.system()} {platform.release()}",
+        "Platform": platform.platform(),
+        "Python Version": platform.python_version(),
+        "PyTorch Version": torch.__version__,
+        "CUDA Version": torch.version.cuda,
+        "CPU Cores": os.cpu_count(),
+    }
+    if torch.cuda.is_available():
+        info["Devices"] = ", ".join(
+            torch.cuda.get_device_name(i) for i in range(torch.cuda.device_count())
+        )
+    else:
+        info["Devices"] = "no CUDA device"
+    return info
+
+
+def log_information(log_path, info_dict, log_name=None, open_type="a", print_log=False):
+    """Append a key:value block to the run log."""
+    if log_path is None:
+        return
+    with open(log_path, open_type) as f:
+        sep = "\n" + "=" * 50 + "\n"
+        f.write(sep)
+        if print_log:
+            print(sep)
+        if log_name:
+            f.write(f"{log_name}\n")
+            if print_log:
+                print(log_name)
+        for key, value in info_dict.items():
+            line = f"{key}: {value}\n"
+            f.write(line)
+            if print_log:
+                print(line, end="")
+
+
+def log_setup(log_path, print_log=True):
+    log_information(
+        log_path,
+        {"Date and Time": str(datetime.now()), "Command Run": " ".join(sys.argv)},
+        "Run Info",
+        "w",
+    )
+    log_information(log_path, get_system_info(), "System Info", print_log=print_log)
+
+
+def setup_and_read_input(args, need_model: bool = False):
+    """Shared pipeline input handling: log setup, read the input table,
+    validate the id/structure columns, resolve the columns to keep.
+    Returns ``(table, log_path, keep_columns)``."""
+    os.makedirs(os.path.dirname(args.output) or ".", exist_ok=True)
+    log_path = os.path.splitext(args.output)[0] + ".log"
+    quiet = getattr(args, "quiet", False)
+    log_setup(log_path, print_log=not quiet)
+    log_information(log_path, vars(args), "Arguments", print_log=not quiet)
+
+    table = read_table(args.input)
+
+    if args.structure_column_name not in table.columns:
+        raise ValueError(
+            f"Structure column '{args.structure_column_name}' not found in input data."
+        )
+    if args.id_column not in table.columns:
+        raise ValueError(f"ID column '{args.id_column}' not found in input data.")
+    ids = table.column(args.id_column)
+    if len(set(ids)) != len(ids):
+        log_information(log_path, {"warning": "duplicate IDs"}, "Warning")
+
+    if need_model:
+        if not hasattr(args, "model_path"):
+            raise ValueError("need_model=True but args has no model_path attribute.")
+        if not os.path.exists(args.model_path):
+            raise ValueError(f"Model path '{args.model_path}' does not exist.")
+
+    if getattr(args, "keep_cols", None):
+        requested = [c.strip() for c in args.keep_cols.split(",")]
+        missing = [c for c in requested if c not in table.columns]
+        if missing:
+            raise ValueError(
+                f"The following columns specified in --keep-cols do not exist in the input file: {missing}"
+            )
+        propagate = requested
+    else:
+        propagate = [
+            c for c in table.columns if c not in (args.id_column, args.structure_column_name)
+        ]
+    return table, log_path, propagate
