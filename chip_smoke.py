@@ -5,10 +5,17 @@
 
 Builds the port's CUDA kernels from the sources in this checkout, holds
 each kernel against its plain PyTorch version on the card, then drives
-the main path — ``ginfinity-embed --window-size 120
---keep-paired-neighbors`` of the port — on a seeded corpus of about
-23,000 windows with a seeded flagship checkpoint (6 x GINE-128,
-GraphNorm, mean pool, zscore_l2 before pooling).
+the port's two paths with a seeded flagship checkpoint (6 x GINE-128,
+GraphNorm, mean pool, zscore_l2):
+
+* the window path, ``ginfinity-embed --window-size 120
+  --keep-paired-neighbors``, on a seeded corpus of about 23,000 windows
+  (kernel K1, the window encoder);
+* the alignment path, ``ginfinity-generate-node-embeddings`` on 64
+  seeded structures of 150-350 nt, then
+  ``ginfinity-align-node-embeddings-batch`` over all 2,016 pairs and
+  ``ginfinity-align-node-embeddings`` on one pair (kernel K2, the
+  affine-gap DP wavefront).
 
 Each phase prints one JSON line with its name and seconds.  Before the
 last line it prints the card's name and power limit (as nvidia-smi
@@ -39,12 +46,21 @@ sys.dont_write_bytecode = True
 from ginfinity_tpu_torch.models.checkpoint import export_torch_checkpoint
 from ginfinity_tpu_torch.models.gine import GINConfig, GINModel, init_params
 from ginfinity_tpu_torch.ops import _build
+from ginfinity_tpu_torch.ops.dp import (
+    dp_kernel_ok,
+    pad_batch,
+    paths_from_codes,
+    wavefront_plain,
+)
+from ginfinity_tpu_torch.ops.dp_wavefront import barrier_probe, dp_wavefront, smem_limit
 from ginfinity_tpu_torch.ops.windows_encoder import (
     forward_windows,
     forward_windows_reference,
     pack_params,
 )
-from ginfinity_tpu_torch.pipelines import embed
+from ginfinity_tpu_torch.pipelines import align, align_batch, embed, node_embed
+from ginfinity_tpu_torch.pipelines.align import cosine_similarity_matrix
+from ginfinity_tpu_torch.pipelines.engine import InferenceEngine, preprocess_structures
 from ginfinity_tpu_torch.pipelines.fast_windows import (
     _chunk_for,
     _embed_group,
@@ -63,6 +79,11 @@ F32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate
 SEED = 0
 DEVICE = torch.device("cuda", 0)
+DP_GAPS = ((-1.0, -1.0), (-2.0, -0.5), (-10.0, -0.5), (-1.5, -0.3))
+DP_TOL = 1e-4              # |score| kernel vs plain version (0 expected)
+DP_OPS_PER_CELL = 10       # float32 adds and compares per DP cell
+ALIGN_RNAS = 64            # structures of the alignment path: 2,016 pairs
+ALIGN_BATCH = 64           # pairs per DP launch (the CLI's default)
 
 FLAGSHIP = dict(hidden_dim=128, output_dim=128, gin_layers=6,
                 pooling_type="global_mean_pool", node_embed_norm="zscore_l2",
@@ -189,6 +210,64 @@ def encoder_bound_ms(cfg, x0, flags, packed, L: int) -> tuple[float, str]:
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def dp_tensors(mats, dev, L1=None, L2=None):
+    """A batch of score matrices padded as ``affine_align_batch`` pads it,
+    on ``dev``, with the real sides also on the host."""
+    scores, l1, l2 = pad_batch(mats, L1, L2)
+    return (torch.from_numpy(scores).to(dev), torch.from_numpy(l1).to(dev),
+            torch.from_numpy(l2).to(dev), l1, l2)
+
+
+def dp_compare(mats, go, ge, mode, dev) -> tuple[float, list]:
+    """K2 against the plain wavefront on the same batch on the card:
+    identical paths and best cells, |score| within DP_TOL.  Returns the
+    max score difference and the plain version's (score, path) per pair."""
+    s, l1d, l2d, l1, l2 = dp_tensors(mats, dev)
+    got = [t.cpu().numpy() for t in dp_wavefront(s, l1d, l2d, go, ge, mode)]
+    ref = [t.cpu().numpy() for t in wavefront_plain(s, l1d, l2d, go, ge, mode)]
+    err = float(np.abs(got[0] - ref[0]).max())
+    if not (err <= DP_TOL and np.isfinite(got[0]).all()):
+        raise AssertionError(f"K2 vs plain ({mode}, {go}, {ge}): |score| {err} > {DP_TOL}")
+    if not (np.array_equal(got[1], ref[1]) and np.array_equal(got[2], ref[2])):
+        raise AssertionError(f"K2 vs plain ({mode}, {go}, {ge}): best cells differ")
+    paths = paths_from_codes(ref[3], l1, l2, ref[1], ref[2], mode)
+    if paths != paths_from_codes(got[3], l1, l2, got[1], got[2], mode):
+        raise AssertionError(f"K2 vs plain ({mode}, {go}, {ge}): paths differ")
+    return err, list(zip(ref[0].tolist(), paths))
+
+
+def dp_cases(rng: np.random.Generator, max_l1: int) -> dict:
+    """The inputs K2 is held to its plain version on: seeded normal
+    matrices with sides 3-384, integer-valued matrices (ties everywhere),
+    the rectangular extremes 3x37 and 31x4, all-negative matrices (local
+    mode: an empty path) and one pair near the gate's upper limit."""
+    f32 = np.float32
+    sides = [(3, 384), (384, 3), (384, 384)] + [
+        (int(rng.integers(3, 385)), int(rng.integers(3, 385))) for _ in range(13)]
+    return {
+        "normal_3_384": [rng.normal(size=sz).astype(f32) for sz in sides],
+        "integer_ties": [rng.integers(-2, 3, size=(int(rng.integers(20, 200)),
+                                                   int(rng.integers(20, 200)))).astype(f32)
+                         for _ in range(4)],
+        "rect_3x37_31x4": [rng.normal(size=(3, 37)).astype(f32),
+                           rng.normal(size=(31, 4)).astype(f32)],
+        "all_negative": [np.full((8, 11), -2.0, f32),
+                         -np.abs(rng.normal(size=(40, 25))).astype(f32)],
+        f"near_gate_{max_l1}x8": [rng.normal(size=(max_l1, 8)).astype(f32)],
+    }
+
+
+def dp_bounds(l1: np.ndarray, l2: np.ndarray, L1: int, L2: int) -> tuple[float, str, float]:
+    """Least time for K2's work on these pairs: the scores its cells read
+    (each real cell once) and the codes it writes ([B, L1+L2, L1+1]
+    bytes) over the memory rate, against DP_OPS_PER_CELL float32
+    operations per real cell over the float32 rate."""
+    cells = float(((l1.astype(np.int64) + 1) * (l2.astype(np.int64) + 1)).sum())
+    nbytes = 4.0 * float((l1.astype(np.int64) * l2).sum()) + len(l1) * (L1 + L2) * (L1 + 1)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, cells * DP_OPS_PER_CELL / F32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes
+
+
 @contextlib.contextmanager
 def phase(name: str, record: dict):
     t0 = time.perf_counter()
@@ -244,6 +323,24 @@ def main() -> int:
             if not (err <= TOL and torch.isfinite(got).all()):
                 raise AssertionError(f"kernel vs plain {name}: max abs {err} > {TOL}")
 
+    dp_errs = []
+    with phase("dp_kernel_vs_plain", {"tolerance": DP_TOL}) as rec:
+        limit = smem_limit(dev)
+        max_l1 = max(L for L in range(1, 20000) if dp_kernel_ok(L, 8, "global", limit))
+        cases = dp_cases(np.random.default_rng(SEED + 5), max_l1)
+        n_pairs = 0
+        for mode in ("global", "local"):
+            for go, ge in DP_GAPS:
+                for name, mats in cases.items():
+                    err, res = dp_compare(mats, go, ge, mode, dev)
+                    if name == "all_negative" and mode == "local" and \
+                            any(r != (0.0, []) for r in res):
+                        raise AssertionError(f"local all-negative: {res} is not empty")
+                    dp_errs.append(err)
+                    n_pairs += len(mats)
+        rec.update(pairs_compared=n_pairs, max_abs_err=max(dp_errs), smem_optin=limit,
+                   gate_max_l1=max_l1, cases=sorted(cases))
+
     with tempfile.TemporaryDirectory() as tmp, phase("main_path", {"card": card}) as rec:
         cfg = GINConfig.create(**FLAGSHIP)
         params, state = seeded_model(cfg, SEED + 2)
@@ -258,7 +355,7 @@ def main() -> int:
             w.writerows((f"rna{i}", s) for i, s in enumerate(structures))
         out = os.path.join(tmp, "windows.tsv")
 
-        forward_windows.launches = 0
+        forward_windows.launches = dp_wavefront.launches = 0
         t0 = time.perf_counter()
         embed.main(["--input", src, "--id-column", "rna_id", "--output", out,
                     "--model-path", ckpt, "--window-size", str(WINDOW),
@@ -268,6 +365,7 @@ def main() -> int:
         launches = forward_windows.launches
         if launches <= 0:
             raise AssertionError("the main path launched no window-encoder kernel")
+        rec["dp_kernel_launches"] = dp_wavefront.launches
 
         with open(out, newline="") as f:
             rows = list(csv.DictReader(f, delimiter="\t"))
@@ -314,6 +412,112 @@ def main() -> int:
                    warm_embed_seconds=warm_s,
                    warm_embed_windows_per_s=n_windows / warm_s)
 
+    with tempfile.TemporaryDirectory() as tmp, phase("align_path", {"card": card}) as rec:
+        rnas = [random_structure(rng, int(rng.integers(150, 351)))
+                for _ in range(ALIGN_RNAS)]
+        params, state = seeded_model(cfg, SEED + 4)
+        ckpt = os.path.join(tmp, "flagship.pth")
+        export_torch_checkpoint(ckpt, cfg, params, state)
+        src = os.path.join(tmp, "structures.csv")
+        with open(src, "w", newline="") as f:
+            w = csv.writer(f)
+            w.writerow(["rid", "secondary_structure"])
+            w.writerows((f"rna{i}", s) for i, s in enumerate(rnas))
+        nodes = os.path.join(tmp, "nodes.tsv")
+        out_dir = os.path.join(tmp, "pairs")
+        n_pairs = ALIGN_RNAS * (ALIGN_RNAS - 1) // 2
+
+        forward_windows.launches = dp_wavefront.launches = wavefront_plain.launches = 0
+        t0 = time.perf_counter()
+        node_embed.main(["--input", src, "--id-column", "rid", "--output", nodes,
+                         "--model-path", ckpt, "--keep-cols", "secondary_structure",
+                         "--quiet", "--device", "cuda"])
+        torch.cuda.synchronize()
+        node_embed_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        align_batch.main(["--input", nodes, "--id-column", "rid", "--output-dir", out_dir,
+                          "--batch-size", str(ALIGN_BATCH), "--mode", "global",
+                          "--structure-column-name", "secondary_structure",
+                          "--device", "cuda"])
+        torch.cuda.synchronize()
+        align_batch_s = time.perf_counter() - t0
+        batch_launches = dp_wavefront.launches
+        align.main(["--input", nodes, "--id-column", "rid", "--rna1", "rna0", "--rna2",
+                    "rna1", "--mode", "local", "--structure-column-name",
+                    "secondary_structure", "--output-prefix", os.path.join(tmp, "pair"),
+                    "--device", "cuda"])
+        torch.cuda.synchronize()
+        dp_launches, plain_launches = dp_wavefront.launches, wavefront_plain.launches
+        window_launches = forward_windows.launches
+        expected = -(-n_pairs // ALIGN_BATCH)
+        if batch_launches != expected or dp_launches != expected + 1 or plain_launches:
+            raise AssertionError(f"the align path launched K2 {batch_launches} + "
+                                 f"{dp_launches - batch_launches} times (expected {expected}"
+                                 f" + 1) and the plain DP {plain_launches} times")
+
+        # node embeddings: one matrix per RNA, unit rows (zscore_l2), equal
+        # on a sample to the port's CPU run of the same checkpoint
+        with open(nodes, newline="") as f:
+            rows = list(csv.DictReader(f, delimiter="\t"))
+        mats = [node_embed.parse_matrix(r["node_embeddings"]) for r in rows]
+        if [m.shape for m in mats] != [(len(st), cfg.hidden_dims[-1]) for st in rnas]:
+            raise AssertionError("node-embedding matrices of the wrong shape")
+        norms = np.concatenate([np.linalg.norm(m, axis=1) for m in mats])
+        if not (np.isfinite(norms).all() and np.abs(norms - 1).max() < 1e-4):
+            raise AssertionError("node embeddings are not finite unit rows")
+        cpu = InferenceEngine.from_checkpoint(ckpt, device="cpu").node_embeddings(
+            preprocess_structures(rnas[:4]).graphs)
+        node_err = max(float(np.abs(c - m).max()) for c, m in zip(cpu, mats))
+        if node_err > TOL:
+            raise AssertionError(f"node embeddings vs the CPU: max abs {node_err} > {TOL}")
+
+        with open(os.path.join(out_dir, "summary.tsv"), newline="") as f:
+            summary = list(csv.DictReader(f, delimiter="\t"))
+        scores = np.array([float(r["score"]) for r in summary])
+        if len(summary) != n_pairs or not np.isfinite(scores).all():
+            raise AssertionError("summary.tsv: wrong row count or a score that is not finite")
+        with open(os.path.join(tmp, "pair.alignment.tsv")) as f:
+            if 'mode="local"' not in f.read():
+                raise AssertionError("align CLI wrote no local alignment")
+
+        # the CLI's work again, stage by stage: host similarity, device DP
+        # (upload, kernel, download), host un-shear and traceback; and 32
+        # pairs re-aligned by the plain wavefront on the card
+        pairs = [(i, j) for i in range(ALIGN_RNAS) for j in range(i + 1, ALIGN_RNAS)]
+        t_sim = t_dev = t_host = 0.0
+        dp_batches = []
+        for s0 in range(0, n_pairs, ALIGN_BATCH):
+            chunk = pairs[s0:s0 + ALIGN_BATCH]
+            t0 = time.perf_counter()
+            sims = [cosine_similarity_matrix(mats[i], mats[j]).astype(np.float32)
+                    for i, j in chunk]
+            t1 = time.perf_counter()
+            sd, l1d, l2d, l1, l2 = dp_tensors(sims, dev)
+            best, bi, bj, codes = (t.cpu().numpy() for t in
+                                   dp_wavefront(sd, l1d, l2d, -1.0, -1.0, "global"))
+            t2 = time.perf_counter()
+            paths_from_codes(codes, l1, l2, bi, bj, "global")
+            t3 = time.perf_counter()
+            t_sim, t_dev, t_host = t_sim + t1 - t0, t_dev + t2 - t1, t_host + t3 - t2
+            dp_batches.append(sims)
+        sims = dp_batches[0][:32]
+        err, plain_res = dp_compare(sims, -1.0, -1.0, "global", dev)
+        plain_scores = np.array([sc for sc, _ in plain_res])
+        cli_err = float(np.abs(plain_scores - scores[:len(sims)]).max())
+        if cli_err > DP_TOL:
+            raise AssertionError(f"align CLI vs plain wavefront: |score| {cli_err} > {DP_TOL}")
+        dp_errs += [err, cli_err]
+        rec.update(structures=ALIGN_RNAS, pairs=n_pairs, node_embed_seconds=node_embed_s,
+                   node_max_abs_err_vs_cpu=node_err,
+                   align_batch_seconds=align_batch_s,
+                   align_batch_pairs_per_s=n_pairs / align_batch_s,
+                   dp_kernel_launches=dp_launches, dp_kernel_launches_batch_cli=batch_launches,
+                   window_kernel_launches=window_launches,
+                   plain_dp_launches=plain_launches,
+                   host_similarity_seconds=t_sim, device_dp_seconds=t_dev,
+                   host_codes_dense_traceback_seconds=t_host,
+                   plain_recheck_pairs=len(sims), plain_recheck_max_abs_err=max(err, cli_err))
+
     with phase("kernel_timing", {"card": card}) as rec:
         p, s = model.params, model.state
         x0, flags = chunk_inputs(cfg, p, structures, WINDOW, dev)
@@ -328,7 +532,25 @@ def main() -> int:
                    bound_ms=bound_ms, bound_by=bound_by,
                    max_abs_err=errs[-1])
 
+        # K2 on the align path's first batch, as the CLI pads it and padded
+        # to 384 x 384; its dependency floor is the probe's time for the
+        # same number of diagonal steps in CTAs of the same shape
+        sims = dp_batches[0]
+        dp_t = {}
+        for key, L in (("batch", None), ("384", 384)):
+            sd, l1d, l2d, l1, l2 = dp_tensors(sims, dev, L, L)
+            B, L1, L2 = sd.shape
+            run = (sd, l1d, l2d, -1.0, -1.0, "global")
+            k_ms = cuda_ms(lambda: dp_wavefront(*run), 20)
+            p_ms = cuda_ms(lambda: wavefront_plain(*run), 2)
+            b_ms, b_by, nbytes = dp_bounds(l1, l2, L1, L2)
+            dep_ms = cuda_ms(lambda: barrier_probe(B, L1 + L2, L1, dev), 20)
+            dp_t[key] = dict(pairs=B, L1=L1, L2=L2, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                             bound_by=b_by, bytes=nbytes, dependency_floor_ms=dep_ms)
+        rec["dp_wavefront"] = dp_t
+
     print(card)
+    k2 = dp_t["batch"]
     print(json.dumps({"kernels": [{
         "name": "windows_encoder",
         "route": "cuda",
@@ -340,6 +562,18 @@ def main() -> int:
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
+        "library_ms": None,
+    }, {
+        "name": "dp_wavefront",
+        "route": "cuda",
+        "source": "ginfinity_tpu_torch/ops/csrc/dp_wavefront.cu",
+        "replaces": "ginfinity_tpu/ops/pallas_dp.py:48",
+        "launches": dp_launches,
+        "max_abs_err": max(dp_errs),
+        "ms": k2["ms"],
+        "plain_ms": k2["plain_ms"],
+        "bound_ms": k2["bound_ms"],
+        "bound_by": k2["bound_by"],
         "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,11 @@
-"""Window node features and constant edge rows.
+"""Graph construction: dot-bracket -> flat arrays, and the window rows.
 
-Port of the window part of ``ginfinity_tpu/graphs/build.py``.
+Port of ``ginfinity_tpu/graphs/build.py``: the standard encoding's
+:class:`GraphArrays` (node features, both-ways directed edges with
+``[adjacent, base_pair, is_forward, is_backward]`` attributes), the
+window node features and the constant window edge rows.  The forgi
+encoding is not ported yet (ROADMAP queue 1, item 1).
+
 Standard node features are ``[w*paired, w*unpaired, loop_size_norm,
 loop_pos_norm]`` (+ a ``seq_weight``-scaled ACGU one-hot when
 ``seq_weight > 0``), ``w = 1 - seq_weight``.  Forgi models place the
@@ -9,9 +14,11 @@ same block in their 16-wide layout ``[4 struct, 4 seq, is_base, 7 type]``.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 
-from ginfinity_tpu_torch.graphs.dotbracket import loop_features, one_hot_sequence
+from ginfinity_tpu_torch.graphs.dotbracket import loop_features, one_hot_sequence, pair_table
 
 FORGI_NODE_TYPES = (
     "five_prime",
@@ -22,6 +29,36 @@ FORGI_NODE_TYPES = (
     "three_prime",
     "other",
 )
+
+
+@dataclasses.dataclass
+class GraphArrays:
+    """One RNA structure as flat host arrays.  ``edge_src/edge_dst`` list
+    every directed edge, ``edge_attr`` is per directed edge;
+    ``n_base_nodes`` counts the real bases (all nodes in the standard
+    encoding)."""
+
+    node_feat: np.ndarray  # [N, F] float32
+    edge_src: np.ndarray  # [E] int32
+    edge_dst: np.ndarray  # [E] int32
+    edge_attr: np.ndarray  # [E, Fe] float32
+    n_nodes: int
+    n_base_nodes: int
+
+    @property
+    def n_edges(self) -> int:
+        return int(self.edge_src.shape[0])
+
+
+def _directed_both_ways(src: np.ndarray, dst: np.ndarray,
+                        attr_base: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Every undirected edge in both directions, with ``[is_forward,
+    is_backward]`` appended to its attributes."""
+    s = np.concatenate([src, dst])
+    d = np.concatenate([dst, src])
+    a = np.concatenate([attr_base, attr_base], axis=0)
+    fwd = (s < d).astype(np.float32)[:, None]
+    return s, d, np.concatenate([a, fwd, 1.0 - fwd], axis=1)
 
 
 def standard_node_features(
@@ -89,3 +126,60 @@ def window_edge_const_rows(edge_dim: int) -> np.ndarray:
     rows[2, fwd] = 1.0
     rows[3, bwd] = 1.0
     return rows
+
+
+def _standard_edges(pt: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Backbone edges ``(i, i-1)`` and one edge per base pair ``(i, pt[i])``,
+    ``i < pt[i]``, both ways.  A pair whose partner is its backbone
+    neighbour (``pt[i] == i + 1``) gives no base-pair edge: the
+    reference's simple graph overwrites it with the adjacent edge."""
+    n = pt.shape[0]
+    bb_src = np.arange(1, n, dtype=np.int32)
+    bb_dst = bb_src - 1
+    i = np.arange(n, dtype=np.int32)
+    bp_mask = (pt >= 0) & (i < pt) & (pt != i + 1)
+    bp_src = i[bp_mask]
+    bp_dst = pt[bp_mask].astype(np.int32)
+
+    src = np.concatenate([bb_src, bp_src])
+    dst = np.concatenate([bb_dst, bp_dst])
+    attr = np.zeros((src.shape[0], 2), dtype=np.float32)
+    attr[: bb_src.shape[0], 0] = 1.0  # adjacent
+    attr[bb_src.shape[0]:, 1] = 1.0  # base_pair
+    return _directed_both_ways(src, dst, attr)
+
+
+def build_standard(
+    structure: str,
+    sequence: str | None = None,
+    seq_weight: float = 0.0,
+    feature_dim: int | None = None,
+) -> GraphArrays:
+    pt = pair_table(structure)
+    feat = standard_node_features(pt, sequence, seq_weight, feature_dim)
+    src, dst, attr = _standard_edges(pt)
+    return GraphArrays(
+        node_feat=feat,
+        edge_src=src.astype(np.int32),
+        edge_dst=dst.astype(np.int32),
+        edge_attr=attr,
+        n_nodes=pt.shape[0],
+        n_base_nodes=pt.shape[0],
+    )
+
+
+def build_graph_arrays(
+    structure: str,
+    sequence: str | None = None,
+    seq_weight: float = 0.0,
+    graph_encoding: str = "standard",
+    feature_dim: int | None = None,
+) -> GraphArrays:
+    encoding = (graph_encoding or "standard").lower()
+    if encoding == "standard":
+        return build_standard(structure, sequence, seq_weight, feature_dim)
+    if encoding == "forgi":
+        raise NotImplementedError(
+            "the forgi graph encoding is not ported yet (ROADMAP queue 1, item 1)"
+        )
+    raise ValueError(f"Unsupported graph_encoding '{graph_encoding}'")

@@ -1,7 +1,7 @@
 """GINE encoder configuration, parameters and shared layer helpers.
 
 Port of the parts of ``ginfinity_tpu/models/gine.py`` that the windowed
-embedding path uses.  Parameters keep the JAX package's tree layout —
+embedding path and the node-embedding path use.  Parameters keep the JAX package's tree layout —
 nested dicts with ``[in, out]`` dense kernels — so the fused window
 forward reads like its JAX counterpart and a JAX parameter tree carries
 over key for key (``models/checkpoint.py::params_from_jax``).
@@ -22,10 +22,13 @@ from typing import Any
 import torch
 from torch import nn
 
+from ginfinity_tpu_torch.graphs.batching import GraphBatch
 from ginfinity_tpu_torch.graphs.build import FORGI_NODE_TYPES
 
 Params = dict
 State = dict
+
+_NORM_EPS = 1e-5  # PyG GraphNorm eps
 
 
 @dataclasses.dataclass(frozen=True)
@@ -209,6 +212,75 @@ def apply_node_norm(config: GINConfig, state: State, x: torch.Tensor) -> torch.T
     return x
 
 
+def _segment_sum(x: torch.Tensor, seg: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """``jax.ops.segment_sum`` as ``index_add_`` into zeros."""
+    out = torch.zeros((num_segments,) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
+    return out.index_add_(0, seg, x)
+
+
+def _graph_counts(batch: GraphBatch) -> torch.Tensor:
+    """Real-node count per graph (+ trash segment), shape [G+1]."""
+    return _segment_sum(batch.node_mask, batch.node_graph, batch.num_graphs + 1)
+
+
+def _segment_mean(x: torch.Tensor, batch: GraphBatch, counts: torch.Tensor) -> torch.Tensor:
+    """Per-graph mean over real nodes; returns [G+1, F]."""
+    s = _segment_sum(x * batch.node_mask[:, None], batch.node_graph, batch.num_graphs + 1)
+    return s / torch.clamp(counts, min=1.0)[:, None]
+
+
+def _graph_norm(x: torch.Tensor, p: dict, batch: GraphBatch) -> torch.Tensor:
+    counts = _graph_counts(batch)
+    mean = _segment_mean(x, batch, counts)
+    out = x - mean[batch.node_graph] * p["mean_scale"]
+    var = _segment_mean(out * out, batch, counts)
+    std = torch.sqrt(var + _NORM_EPS)
+    return p["weight"] * out / std[batch.node_graph] + p["bias"]
+
+
+def encode_nodes(config: GINConfig, params: Params, state: State, batch: GraphBatch,
+                 *, train: bool = False) -> torch.Tensor:
+    """The GINE stack in inference mode; raw node embeddings [N_pad, D].
+
+    Each layer: ``msg = relu(x[src] + edge_lin(attr)) * edge_mask``
+    summed into ``dst``; ``h = (1 + eps) x + agg``; a 2-layer ReLU MLP;
+    GraphNorm (or none); the residual when the widths match."""
+    if train:
+        raise NotImplementedError(
+            "training mode and dropout are not ported yet (ROADMAP queue 1, item 2)"
+        )
+    if config.norm_type not in ("graph", "none"):
+        raise NotImplementedError(
+            f"norm_type {config.norm_type!r} is not ported yet (ROADMAP queue 1, item 2)"
+        )
+    x = _dense(batch.node_feat, params["node_encoder"])
+    for i in range(config.gin_layers):
+        conv = params["convs"][i]
+        h_in = x
+        edge_emb = _dense(batch.edge_attr, conv["edge_lin"])
+        msg = torch.relu(x[batch.edge_src] + edge_emb) * batch.edge_mask[:, None]
+        agg = _segment_sum(msg, batch.edge_dst, batch.num_nodes_padded)
+        h = (1.0 + conv["eps"]) * x + agg
+        h = torch.relu(_dense(h, conv["mlp0"]))
+        h = torch.relu(_dense(h, conv["mlp1"]))
+        if config.norm_type == "graph":
+            h = _graph_norm(h, params["norms"][i], batch)
+        if config.use_residual and h_in.shape == h.shape:
+            h = h + h_in
+        x = h
+    return x
+
+
+def get_node_embeddings(config: GINConfig, params: Params, state: State,
+                        batch: GraphBatch, *, apply_norm: bool = True,
+                        train: bool = False) -> torch.Tensor:
+    """Node embeddings [N_pad, D], node-normalised when ``apply_norm``."""
+    x = encode_nodes(config, params, state, batch, train=train)
+    if apply_norm:
+        x = apply_node_norm(config, state, x)
+    return x
+
+
 def listify(node):
     """Turn dicts keyed "0".."n-1" of a nested tree into lists."""
     if not isinstance(node, dict):
@@ -280,6 +352,12 @@ class GINModel(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.node_mu.device
+
+    @torch.no_grad()
+    def get_node_embeddings(self, batch: GraphBatch, apply_norm: bool = True) -> torch.Tensor:
+        """Node embeddings of a batch on the model's device."""
+        return get_node_embeddings(self.config, self.params, self.state,
+                                   batch.to(self.device), apply_norm=apply_norm)
 
     def packed_windows(self):
         """The window kernel's flat parameter buffer for the model's

@@ -30,10 +30,14 @@ class Table:
         return [r[name] for r in self.rows]
 
 
-def read_table(path: str) -> Table:
-    """Read a CSV, or a TSV when the name ends in ``.tsv``; blank lines
-    are skipped."""
-    sep = "\t" if path.endswith(".tsv") else ","
+def read_table(path: str, sep: str | None = None) -> Table:
+    """Read a CSV, or a TSV when the name ends in ``.tsv`` (or with the
+    separator ``sep``); blank lines are skipped."""
+    if sep is None:
+        sep = "\t" if path.endswith(".tsv") else ","
+    # a node-embeddings cell (an L x D matrix as JSON) runs to megabytes,
+    # far beyond the csv module's default field limit of 128 KiB
+    csv.field_size_limit(max(csv.field_size_limit(), 2**31 - 1))
     with open(path, newline="") as f:
         reader = csv.reader(f, delimiter=sep)
         columns = next(reader, [])
@@ -44,6 +48,17 @@ def read_table(path: str) -> Table:
             cells = cells + [""] * (len(columns) - len(cells))
             rows.append({c: (v if v != "" else None) for c, v in zip(columns, cells)})
     return Table(columns, rows)
+
+
+def read_table_auto(path: str) -> Table:
+    """A ``.tsv`` name reads as a TSV and a ``.csv`` name as a CSV; any
+    other name takes the separator ``csv.Sniffer`` finds in its first
+    line, as pandas' ``sep=None`` does."""
+    if path.endswith(".tsv") or path.endswith(".csv"):
+        return read_table(path)
+    with open(path, newline="") as f:
+        first = f.readline()
+    return read_table(path, csv.Sniffer().sniff(first).delimiter)
 
 
 def write_tsv(path: str, columns: list[str], rows: list[dict]) -> None:
