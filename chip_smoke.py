@@ -17,7 +17,12 @@ GraphNorm, mean pool, zscore_l2):
   ``ginfinity-align-node-embeddings`` on one pair (kernel K2, the
   affine-gap DP wavefront).
 
-Each phase prints one JSON line with its name and seconds.  Before the
+Each phase prints one JSON line with its name and seconds.  The
+``main_path`` line also splits the warm window pass (upload, window
+build, K1, download, from CUDA events) and the CLI's host stages (CSV
+read, checkpoint load, prep, TSV write); ``kernel_timing`` gives K1's
+bound at the float32-accurate tensor-core rate (3xTF32) and, beside it,
+at the FMA units' float32 rate.  Before the
 last line it prints the card's name and power limit (as nvidia-smi
 gives them) and one JSON line of per-kernel numbers; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero without
@@ -43,7 +48,7 @@ import torch
 # built kernels under ginfinity_tpu_torch/_build/
 sys.dont_write_bytecode = True
 
-from ginfinity_tpu_torch.models.checkpoint import export_torch_checkpoint
+from ginfinity_tpu_torch.models.checkpoint import export_torch_checkpoint, load_checkpoint
 from ginfinity_tpu_torch.models.gine import GINConfig, GINModel, init_params
 from ginfinity_tpu_torch.ops import _build
 from ginfinity_tpu_torch.ops.dp import (
@@ -54,6 +59,7 @@ from ginfinity_tpu_torch.ops.dp import (
 )
 from ginfinity_tpu_torch.ops.dp_wavefront import barrier_probe, dp_wavefront, smem_limit
 from ginfinity_tpu_torch.ops.windows_encoder import (
+    _library,
     forward_windows,
     forward_windows_reference,
     pack_params,
@@ -70,12 +76,17 @@ from ginfinity_tpu_torch.pipelines.fast_windows import (
     embed_corpus_windows,
 )
 from ginfinity_tpu_torch.utils.device import disable_tf32
+from ginfinity_tpu_torch.utils.io import read_table, write_tsv
 
 WINDOW = 120
 N_WINDOWS = 23_000         # the size of the bench corpus at L = 120
 SAMPLE_WINDOWS = 512       # windows re-embedded through the plain path
 TOL = 1e-4                 # max abs, kernel vs plain version, float32
 F32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
+# float32-accurate products on the tensor cores: 3xTF32, three TF32 passes
+# at 495 TFLOP/s (the rate of K1's products, and the counterpart of the TPU
+# kernel's Precision.HIGHEST)
+TF32X3_FLOPS = 495e12 / 3
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate
 SEED = 0
 DEVICE = torch.device("cuda", 0)
@@ -90,17 +101,23 @@ FLAGSHIP = dict(hidden_dim=128, output_dim=128, gin_layers=6,
                 norm_type="graph", use_residual=True,
                 normalize_nodes_before_pool=True)
 
-# the kernel against its plain version: (name, config, window length)
+# one long stem: the windows over its opening strand have every slot
+# pulled (2L = 240 active rows), more than shared memory holds
+ALL_PULLED = ("(" * 130 + "." * 8 + ")" * 130,)
+
+# the kernel against its plain version: (name, config, window length,
+# structures or None for the seeded corpus)
 KERNEL_CASES = (
-    ("flagship_L120", GINConfig.create(**FLAGSHIP), 120),
-    ("flagship_L40", GINConfig.create(**FLAGSHIP), 40),
+    ("flagship_L120", GINConfig.create(**FLAGSHIP), 120, None),
+    ("flagship_L40", GINConfig.create(**FLAGSHIP), 40, None),
     ("widths_256_512x3_to_512",
      GINConfig.create(**{**FLAGSHIP, "hidden_dim": [256, 512, 512, 512],
-                         "gin_layers": 4, "output_dim": 512}), 120),
+                         "gin_layers": 4, "output_dim": 512}), 120, None),
     ("eps_1e-2_gin_eps_0.1",
-     GINConfig.create(**{**FLAGSHIP, "eps": 1e-2, "gin_eps": 0.1}), 120),
+     GINConfig.create(**{**FLAGSHIP, "eps": 1e-2, "gin_eps": 0.1}), 120, None),
     ("forgi_edges_7",
-     GINConfig.create(**{**FLAGSHIP, "graph_encoding": "forgi"}), 120),
+     GINConfig.create(**{**FLAGSHIP, "graph_encoding": "forgi"}), 120, None),
+    ("flagship_L120_all_pulled", GINConfig.create(**FLAGSHIP), 120, ALL_PULLED),
 )
 
 
@@ -193,11 +210,13 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def encoder_bound_ms(cfg, x0, flags, packed, L: int) -> tuple[float, str]:
+def encoder_bound_ms(cfg, x0, flags, packed, L: int) -> tuple[float, str, float]:
     """Least time for the encoder's work on these inputs: the products'
-    float32 operations on the active rows (window rows + pulled slots)
-    over the FMA rate, against the bytes of every input read once and
-    the output written once over the memory rate."""
+    operations on the active rows (window rows + pulled slots) at the
+    float32-accurate tensor-core rate (3xTF32), against the bytes of every
+    input read once and the output written once over the memory rate.
+    Also the same operations at the FMA units' float32 rate (a second
+    figure, not the bound)."""
     rows = float(x0.shape[0] * L + flags[2].sum().item())
     ops = 0.0
     for i, dout in enumerate(cfg.hidden_dims):
@@ -206,8 +225,95 @@ def encoder_bound_ms(cfg, x0, flags, packed, L: int) -> tuple[float, str]:
     ops += 2.0 * x0.shape[0] * cfg.hidden_dims[-1] * cfg.output_dim
     nbytes = sum(t.numel() * t.element_size() for t in (x0, *flags, packed.flat, packed.meta))
     nbytes += x0.shape[0] * cfg.output_dim * 4
-    t_ops, t_bytes = ops / F32_FLOPS, nbytes / HBM_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+    t_ops, t_bytes = ops / TF32X3_FLOPS, nbytes / HBM_BYTES_PER_S
+    return (1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"),
+            1e3 * max(ops / F32_FLOPS, t_bytes))
+
+
+def warm_split(model, structures, L: int) -> dict:
+    """The warm window pass again, stage by stage: host prep and packing on
+    the host clock; per group the upload, per chunk the window build
+    (``_window_chunk``) and K1, per group the download, each summed from
+    CUDA events.  An event span includes the device's wait for the host
+    to enqueue the stage, so the host's enqueue time of the window build
+    and of K1 is given beside it (``*_host_s``)."""
+    cfg, dev = model.config, model.device
+    t0 = time.perf_counter()
+    per, groups = _prep_corpus_groups(cfg, structures, L, True, 0.0)
+    prep_s = time.perf_counter() - t0
+    packed = model.packed_windows()
+    spans = {"upload": [], "window_build": [], "k1": [], "download": []}
+    pack_s, build_host_s, k1_host_s, n_chunks = 0.0, 0.0, 0.0, 0
+
+    def mark():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    for n_cap, idxs in groups.items():
+        t0 = time.perf_counter()
+        feats, pts, sidx, starts, w_cap = _pack_group(cfg, per, n_cap, idxs)
+        n_real = sum(per[i][4].size for i in idxs)
+        pack_s += time.perf_counter() - t0
+        e0 = mark()
+        feats_d = torch.from_numpy(feats).to(dev)
+        pts_d = torch.from_numpy(pts).to(dev, torch.int64)
+        si = torch.from_numpy(sidx[:n_real]).to(dev, torch.int64)
+        st = torch.from_numpy(starts[:n_real]).to(dev, torch.int64)
+        spans["upload"].append((e0, mark()))
+        views = (feats_d.unfold(1, L, 1), pts_d.unfold(1, L, 1))
+        chunk = _chunk_for(w_cap)
+        out = torch.empty((n_real, cfg.output_dim), dtype=torch.float32, device=dev)
+        for c0 in range(0, n_real, chunk):
+            t0 = time.perf_counter()
+            e0 = mark()
+            x0, flags = _window_chunk(cfg, model.params, feats_d, pts_d, si[c0:c0 + chunk],
+                                      st[c0:c0 + chunk], L, True, views)
+            e1 = mark()
+            t1 = time.perf_counter()
+            out[c0:c0 + chunk] = forward_windows(cfg, model.params, model.state, x0, *flags, L,
+                                                 packed=packed)
+            spans["window_build"].append((e0, e1))
+            spans["k1"].append((e1, mark()))
+            build_host_s += t1 - t0
+            k1_host_s += time.perf_counter() - t1
+            n_chunks += 1
+        e0 = mark()
+        out.cpu()
+        spans["download"].append((e0, mark()))
+    torch.cuda.synchronize()
+    res = {f"{k}_ms": sum(a.elapsed_time(b) for a, b in v) for k, v in spans.items()}
+    res.update(host_prep_s=prep_s, host_pack_s=pack_s, window_build_host_s=build_host_s,
+               k1_host_s=k1_host_s, chunks=n_chunks, groups=len(groups))
+    return res
+
+
+def cli_host_split(src: str, ckpt: str, out_tsv: str, structures, L: int, dev) -> dict:
+    """The window CLI's host stages again, each on the host clock: CSV read,
+    checkpoint load (and the model's upload), prep (pair tables, window
+    features, grouping) and the TSV write of the embeddings (text
+    formatting included)."""
+    t0 = time.perf_counter()
+    table = read_table(src)
+    t1 = time.perf_counter()
+    cfg, params, state, _ = load_checkpoint(ckpt)
+    model = GINModel(cfg, params, state).to(dev)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    _prep_corpus_groups(cfg, structures, L, True, 0.0)
+    t3 = time.perf_counter()
+    res = embed_corpus_windows(model, structures, L, True)
+    ids = table.column("rna_id")
+    t4 = time.perf_counter()
+    rows = [{"window_id": f"{rid}_{start}", "rna_id": rid, "window_start": start,
+             "window_end": start + L - 1, "seq_len": len(st),
+             "embedding_vector": embed.format_embedding(vec)}
+            for rid, st, (starts, embs) in zip(ids, structures, res)
+            for start, vec in zip(starts.tolist(), embs)]
+    write_tsv(out_tsv, list(rows[0]), rows)
+    t5 = time.perf_counter()
+    return {"csv_read_s": t1 - t0, "checkpoint_load_s": t2 - t1, "prep_s": t3 - t2,
+            "tsv_write_s": t5 - t4}
 
 
 def dp_tensors(mats, dev, L1=None, L2=None):
@@ -310,15 +416,17 @@ def main() -> int:
     errs = []
     with phase("kernel_vs_plain", {"tolerance": TOL}) as rec:
         structs = corpus(rng, 2000, 120)
-        for name, cfg, L in KERNEL_CASES:
+        for name, cfg, L, own in KERNEL_CASES:
             m = GINModel(cfg, *seeded_model(cfg, SEED + 1)).to(dev)
             p, s = m.params, m.state
-            x0, flags = chunk_inputs(cfg, p, structs, L, dev, C=64)
+            x0, flags = chunk_inputs(cfg, p, own or structs, L, dev, C=64)
             got = forward_windows(cfg, p, s, x0, *flags, L)
             ref = forward_windows_reference(cfg, p, s, x0, *flags, L)
             torch.cuda.synchronize()
             err = (got - ref).abs().max().item()
-            rec[name] = {"max_abs_err": err, "windows": x0.shape[0], "L": L}
+            rows = L + flags[2].sum(dim=1)
+            rec[name] = {"max_abs_err": err, "windows": x0.shape[0], "L": L,
+                         "max_active_rows": int(rows.max().item())}
             errs.append(err)
             if not (err <= TOL and torch.isfinite(got).all()):
                 raise AssertionError(f"kernel vs plain {name}: max abs {err} > {TOL}")
@@ -410,7 +518,10 @@ def main() -> int:
                    sample_max_abs_err=sample_err, cli_seconds=cli_s,
                    cli_windows_per_s=n_windows / cli_s,
                    warm_embed_seconds=warm_s,
-                   warm_embed_windows_per_s=n_windows / warm_s)
+                   warm_embed_windows_per_s=n_windows / warm_s,
+                   warm_split=warm_split(model, structures, WINDOW),
+                   cli_host_split=cli_host_split(src, ckpt, os.path.join(tmp, "split.tsv"),
+                                                 structures, WINDOW, dev))
 
     with tempfile.TemporaryDirectory() as tmp, phase("align_path", {"card": card}) as rec:
         rnas = [random_structure(rng, int(rng.integers(150, 351)))
@@ -527,9 +638,12 @@ def main() -> int:
         errs.append((got - ref).abs().max().item())
         ms = cuda_ms(lambda: forward_windows(cfg, p, s, x0, *flags, WINDOW, packed=packed), 50)
         plain_ms = cuda_ms(lambda: forward_windows_reference(cfg, p, s, x0, *flags, WINDOW), 20)
-        bound_ms, bound_by = encoder_bound_ms(cfg, x0, flags, packed, WINDOW)
+        bound_ms, bound_by, fma_bound_ms = encoder_bound_ms(cfg, x0, flags, packed, WINDOW)
+        rows = WINDOW + flags[2].sum(dim=1)
         rec.update(windows=x0.shape[0], L=WINDOW, ms=ms, plain_ms=plain_ms,
-                   bound_ms=bound_ms, bound_by=bound_by,
+                   bound_ms=bound_ms, bound_by=bound_by, fma_bound_ms=fma_bound_ms,
+                   active_rows_mean=rows.mean().item(), active_rows_max=rows.max().item(),
+                   smem_rows=_library().windows_encoder_smem_rows(WINDOW, cfg.hidden_dims[-1]),
                    max_abs_err=errs[-1])
 
         # K2 on the align path's first batch, as the CLI pads it and padded

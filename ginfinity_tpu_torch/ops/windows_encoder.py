@@ -9,10 +9,15 @@ every GINE layer, the node norm, the pooling and the fc head, and
 return ``[C, out_dim]``.
 
 :func:`forward_windows_reference` is the plain version (the tensor code
-of the JAX package's aligned XLA path).  :func:`forward_windows` runs
-the hand-written kernel ``csrc/windows_encoder.cu`` on a CUDA tensor and
-the plain version on a CPU tensor; it never falls back from one to the
-other.
+of the JAX package's aligned XLA path, IEEE float32).
+:func:`forward_windows` runs the hand-written kernel
+``csrc/windows_encoder.cu`` on a CUDA tensor and the plain version on a
+CPU tensor; it never falls back from one to the other.  The kernel runs
+both products of every layer on the tensor cores as 3xTF32 (the
+counterpart of the TPU kernel's ``Precision.HIGHEST``): each operand is
+split into a TF32 ``hi`` and ``lo`` and ``lo*hi' + hi*lo' + hi*hi'`` is
+summed in float32.  :func:`pack_params` stores the weights' parts for it
+(:func:`tile_weight`); the activations are split inside the kernel.
 """
 
 from __future__ import annotations
@@ -28,6 +33,10 @@ from ginfinity_tpu_torch.models.gine import GINConfig, _dense, apply_node_norm
 _LAYER_META = 8  # per layer: w0, w1, b0, b1, eb, gn offsets; din; dout
 _NORM_MODES = {"none": 0, "l2": 1, "zscore": 2, "zscore_l2": 3}
 _MAX_SMEM = 232448  # bytes of shared memory one CTA may use on Hopper
+# the kernel's tiling (csrc/windows_encoder.cu): a weight stage holds
+# TILE_N output columns by TILE_K inputs, its plane rows PLANE_PAD floats
+# of padding
+TILE_N, TILE_K, PLANE_PAD = 128, 16, 4
 
 
 def layer_dims(config: GINConfig) -> tuple[tuple[int, int], ...]:
@@ -56,10 +65,43 @@ def _edge_rows(config: GINConfig, conv: dict) -> torch.Tensor:
     return _dense(rows.to(conv["edge_lin"]["kernel"].device), conv["edge_lin"])
 
 
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to TF32 (10 mantissa bits, to nearest, ties away
+    from zero: ``cvt.rna.tf32.f32``), as float32 with the low 13 bits
+    zero."""
+    bits = x.to(torch.float32).contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """3xTF32 parts of ``x``: ``hi = tf32(x)``, ``lo = tf32(x - hi)``;
+    ``hi + lo`` is ``x`` to about 2^-22 relative."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x.to(torch.float32) - hi)
+
+
+def tile_weight(w: torch.Tensor) -> torch.Tensor:
+    """A ``[din, dout]`` kernel as the window kernel streams it: ``W``
+    transposed (``[dout, din]``, K-major, as tf32 ``wgmma`` reads B),
+    split into hi and lo, and cut into stages of ``TILE_N`` columns by
+    ``TILE_K`` inputs in the tensor cores' core-matrix order (8 rows of
+    4 floats, 16 bytes each).  Flat order: ``[n tile, k stage, hi/lo,
+    8-row group, 4-float chunk, row, float]``."""
+    wt = w.to(torch.float32).t()
+    N, K = wt.shape
+    parts = []
+    for part in tf32_split(wt):
+        t = part.reshape(N // TILE_N, TILE_N // 8, 8, K // TILE_K, TILE_K // 4, 4)
+        parts.append(t.permute(0, 3, 1, 4, 2, 5))
+    return torch.stack(parts, dim=2).reshape(-1)
+
+
 class PackedParams(NamedTuple):
     """Every weight the kernel reads, in one flat float32 buffer, and
     the int64 table of where each part starts (``_LAYER_META`` entries
-    per layer, then the zscore rows, the fc kernel and the fc bias)."""
+    per layer, then the zscore rows, the fc kernel and the fc bias, then
+    per layer the tiled ``mlp0`` and ``mlp1`` kernels of
+    :func:`tile_weight`)."""
 
     flat: torch.Tensor
     meta: torch.Tensor
@@ -71,7 +113,9 @@ def pack_params(config: GINConfig, params: dict, state: dict) -> PackedParams:
     ``mlp1`` kernels and biases, the edge rows ``[5, din]`` (the four
     edge-class embeddings, then ``1 + eps``) and the GraphNorm rows
     ``[3, dout]`` (weight, bias, mean_scale); then ``node_mu`` and
-    ``node_sigma`` ``[2, h_last]`` and the fc head."""
+    ``node_sigma`` ``[2, h_last]`` and the fc head; then, for the
+    tensor-core products, each layer's two kernels through
+    :func:`tile_weight`, each starting on a 128-byte boundary."""
     parts: list[torch.Tensor] = []
     meta: list[int] = []
     size = 0
@@ -97,6 +141,11 @@ def pack_params(config: GINConfig, params: dict, state: dict) -> PackedParams:
         put(params["fc"]["kernel"]),
         put(params["fc"]["bias"]),
     ]
+    for conv in params["convs"][: config.gin_layers]:
+        for name in ("mlp0", "mlp1"):
+            if size % 32:
+                put(torch.zeros(32 - size % 32, device=parts[0].device))
+            meta.append(put(tile_weight(conv[name]["kernel"])))
     flat = torch.cat(parts).contiguous()
     max_width = max(max(d) for d in layer_dims(config))
     return PackedParams(flat, torch.tensor(meta, dtype=torch.int64, device=flat.device),
@@ -188,6 +237,8 @@ def _library() -> ctypes.CDLL:
         lib.windows_encoder_launch.restype = i
         lib.windows_encoder_smem_bytes.argtypes = [i, i]
         lib.windows_encoder_smem_bytes.restype = ctypes.c_size_t
+        lib.windows_encoder_smem_rows.argtypes = [i, i]
+        lib.windows_encoder_smem_rows.restype = i
         lib.cuda_error_string.argtypes = [i]
         lib.cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -242,7 +293,9 @@ def forward_windows(config: GINConfig, params: dict, state: dict,
     out = torch.empty((C, config.output_dim), dtype=torch.float32, device=x0.device)
     if C == 0:
         return out
-    workspace = torch.empty((C, 3, 2 * L, mw), dtype=torch.float32, device=x0.device)
+    # the planes of the windows with more active rows than shared memory holds
+    workspace = torch.empty((C, 4, 2 * L, mw + PLANE_PAD), dtype=torch.float32,
+                            device=x0.device)
     norm = config.node_embed_norm if config.normalize_nodes_before_pool else "none"
     with torch.cuda.device(x0.device):
         stream = torch.cuda.current_stream().cuda_stream

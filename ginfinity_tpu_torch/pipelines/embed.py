@@ -61,7 +61,7 @@ def generate_window_embeddings(
     structures, ids = [], []
     for rid, s in zip(input_table.column(id_column), input_table.column(structure_column)):
         # invalid rows are logged and skipped, not fatal
-        if s is None or pair_table(s, strict=False) is None:
+        if not isinstance(s, str) or pair_table(s, strict=False) is None:
             log_information(log_path, {"skipped_invalid_structure": f"ID {rid}"})
             continue
         structures.append(s)

@@ -5,9 +5,13 @@ Port of ``ginfinity_tpu/utils/io.py`` over the standard library's
 block log written next to every pipeline output, with a header of
 timestamp, argv and system info.
 
-Cells are kept as the text the input holds; an empty cell is missing
-(``None``) and is written back as ``NaN``, as the JAX package writes a
-missing value.
+Each column gets one type, inferred as ``pandas.read_csv`` infers it (the
+JAX package reads every table through pandas): ``int`` when every cell
+is an integer, ``float`` when every cell is a number and one is a float
+or missing, ``bool`` for ``True``/``False`` columns, otherwise the cell
+text.  A missing cell (empty, or one of pandas' NA strings) is ``None``
+and is written back as ``NaN``; a float is written as ``repr`` writes
+it (``7.0``, ``0.5``), as ``DataFrame.to_csv`` does.
 """
 
 from __future__ import annotations
@@ -15,8 +19,39 @@ from __future__ import annotations
 import csv
 import os
 import platform
+import re
 import sys
 from datetime import datetime
+
+# pandas' default NA strings (``pandas.read_csv(na_values=None)``)
+_NA = frozenset({
+    "", "#N/A", "#N/A N/A", "#NA", "-1.#IND", "-1.#QNAN", "-NaN", "-nan", "1.#IND",
+    "1.#QNAN", "<NA>", "N/A", "NA", "NULL", "NaN", "None", "n/a", "nan", "null",
+})
+_INT = re.compile(r"[+-]?[0-9]+")
+_FLOAT = re.compile(r"[+-]?(?:[0-9]+\.?[0-9]*|\.[0-9]+)(?:[eE][+-]?[0-9]+)?"
+                    r"|[+-]?(?:inf|Inf|INF|infinity|Infinity|INFINITY)")
+_BOOL = {"True": True, "TRUE": True, "true": True,
+         "False": False, "FALSE": False, "false": False}
+
+
+def _typed_column(cells: list) -> list:
+    """One column's cells (text, or None when missing) as pandas types
+    them."""
+    present = [c.strip(" ") for c in cells if c is not None]
+    if present and all(_INT.fullmatch(c) for c in present):
+        ints = [int(c) for c in present]
+        # int64, or uint64 when every value fits it; wider stays text
+        if min(ints) >= -2**63 and (max(ints) < 2**63 or (min(ints) >= 0 and max(ints) < 2**64)):
+            if len(present) == len(cells):
+                return [int(c.strip(" ")) for c in cells]
+            return [None if c is None else float(int(c.strip(" "))) for c in cells]
+        return cells
+    if all(_INT.fullmatch(c) or _FLOAT.fullmatch(c) for c in present):
+        return [None if c is None else float(c.strip(" ")) for c in cells]
+    if all(c in _BOOL for c in present):
+        return [None if c is None else _BOOL[c.strip(" ")] for c in cells]
+    return cells
 
 
 class Table:
@@ -41,12 +76,14 @@ def read_table(path: str, sep: str | None = None) -> Table:
     with open(path, newline="") as f:
         reader = csv.reader(f, delimiter=sep)
         columns = next(reader, [])
-        rows = []
+        lines = []
         for cells in reader:
             if not cells:
                 continue
             cells = cells + [""] * (len(columns) - len(cells))
-            rows.append({c: (v if v != "" else None) for c, v in zip(columns, cells)})
+            lines.append([None if v in _NA else v for v in cells])
+    typed = [_typed_column([ln[k] for ln in lines]) for k in range(len(columns))]
+    rows = [{c: typed[k][i] for k, c in enumerate(columns)} for i in range(len(lines))]
     return Table(columns, rows)
 
 
@@ -62,7 +99,8 @@ def read_table_auto(path: str) -> Table:
 
 
 def write_tsv(path: str, columns: list[str], rows: list[dict]) -> None:
-    """Write rows as a TSV with a header; a missing cell reads ``NaN``."""
+    """Write rows as a TSV with a header; a missing cell reads ``NaN``
+    and a float its ``repr``."""
     with open(path, "w", newline="") as f:
         w = csv.writer(f, delimiter="\t", lineterminator="\n")
         w.writerow(columns)

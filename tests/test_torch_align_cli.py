@@ -60,6 +60,26 @@ def embeddings(tmp_path_factory):
     return jax_tsv, port_tsv
 
 
+@pytest.fixture(scope="module")
+def int_id_embeddings(tmp_path_factory, embeddings):
+    """Node embeddings of RNAs with int ids (``1``, ``2``, ``3``), a float
+    column and an int column with a gap, by each CLI (the model of
+    ``embeddings``)."""
+    d = tmp_path_factory.mktemp("int_ids")
+    model = os.path.join(os.path.dirname(embeddings[0]), "model.pth")
+    rng = np.random.default_rng(1)
+    lines = [f"{i},{random_structure(rng, 50)},{sc},{rk}"
+             for i, sc, rk in ((1, "0.50", "3"), (2, "1.0", ""), (3, "2", "5"))]
+    src = d / "structures.csv"
+    src.write_text("rid,secondary_structure,score,rank\n" + "\n".join(lines) + "\n")
+    args = ["--input", str(src), "--id-column", "rid", "--model-path", model, "--quiet",
+            "--keep-cols", "secondary_structure,score,rank"]
+    jax_tsv, port_tsv = str(d / "jax_nodes.tsv"), str(d / "port_nodes.tsv")
+    jnode_embed.main([*args, "--output", jax_tsv])
+    node_embed.main([*args, "--output", port_tsv, "--device", "cpu"])
+    return jax_tsv, port_tsv
+
+
 def _bytes(path):
     with open(path, "rb") as f:
         return f.read()
@@ -76,6 +96,48 @@ def test_node_embed_tsvs_agree(embeddings):
         np.testing.assert_allclose(node_embed.parse_matrix(g["node_embeddings"]),
                                    node_embed.parse_matrix(r["node_embeddings"]),
                                    atol=1.1e-5, rtol=0)
+
+
+def test_node_embed_int_ids_match_jax(int_id_embeddings):
+    """Every column but the matrices is byte-identical: ``1``, ``0.5``,
+    ``3.0`` and ``NaN`` as pandas writes them."""
+    ref, got = ([ln.split("\t") for ln in _bytes(p).decode().splitlines()]
+                for p in int_id_embeddings)
+    assert got[0] == ref[0] == ["rid", "node_embeddings", "rank", "score",
+                                "secondary_structure"]
+    assert len(got) == len(ref) == 4
+    for g, r in zip(got[1:], ref[1:]):
+        assert g[:1] + g[2:] == r[:1] + r[2:]
+        np.testing.assert_allclose(node_embed.parse_matrix(g[1]), node_embed.parse_matrix(r[1]),
+                                   atol=1.1e-5, rtol=0)
+    assert [g[:1] + g[2:4] for g in got[1:]] == [["1", "3.0", "0.5"], ["2", "NaN", "1.0"],
+                                                 ["3", "5.0", "2.0"]]
+
+
+@pytest.mark.parametrize("main", [jalign.main, align.main], ids=["jax", "port"])
+def test_align_int_id_column_rejects_text_id(int_id_embeddings, main, tmp_path):
+    """``--rna1 1`` is the text ``1``; against an int id column it finds no
+    row, in the port as in the JAX CLI."""
+    args = ["--input", int_id_embeddings[0], "--id-column", "rid", "--rna1", "1",
+            "--rna2", "2", "--output-prefix", str(tmp_path / "o")]
+    if main is align.main:
+        args += ["--device", "cpu"]
+    with pytest.raises(ValueError, match="^No row found where rid == 1$"):
+        main(args)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_align_batch_int_ids_byte_identical(int_id_embeddings, mode, tmp_path):
+    src = int_id_embeddings[0]
+    args = ["--input", src, "--id-column", "rid", "--mode", mode, "--batch-size", "2",
+            "--structure-column-name", "secondary_structure", "--write-alignment"]
+    jalign_batch.main([*args, "--output-dir", str(tmp_path / "jax")])
+    align_batch.main([*args, "--output-dir", str(tmp_path / "port"), "--device", "cpu"])
+    ref, got = _tree(tmp_path / "jax"), _tree(tmp_path / "port")
+    assert sorted(got) == sorted(ref) and len(ref) == 1 + 2 * 3
+    for name in ref:
+        assert got[name] == ref[name], name
+    assert b"\n1\t2\t" in got["summary.tsv"]
 
 
 @pytest.mark.parametrize("pair", [("rna_a", "x-7.1"), ("rna d", "rna/f")])
@@ -218,7 +280,7 @@ def test_read_table_auto_sniffs_other_names(tmp_path):
     assert t.columns == ["a", "b"] and t.column("b") == ["x", "y"]
     q = tmp_path / "t.tsv"
     q.write_text("a\tb\n1\t\n")
-    assert read_table_auto(str(q)).rows == [{"a": "1", "b": None}]
+    assert read_table_auto(str(q)).rows == [{"a": 1, "b": None}]
 
 
 def test_read_table_takes_megabyte_cells(tmp_path):

@@ -55,6 +55,15 @@ def _read(path):
         return list(csv.reader(f, delimiter="\t"))
 
 
+def _run_both(src, model, window, extra, tmp_path):
+    """The JAX CLI and the port on the same input: both TSVs as rows."""
+    args = ["--input", src, "--id-column", "rid", "--model-path", model,
+            "--window-size", str(window), "--quiet", *extra]
+    jembed.main([*args, "--output", str(tmp_path / "jax.tsv")])
+    embed.main([*args, "--output", str(tmp_path / "port.tsv"), "--device", "cpu"])
+    return _read(tmp_path / "jax.tsv"), _read(tmp_path / "port.tsv")
+
+
 @pytest.mark.parametrize("extra", [
     ["--keep-paired-neighbors"],
     ["--mask-threshold", "0.3"],
@@ -62,11 +71,7 @@ def _read(path):
 ])
 def test_tsv_matches_jax_cli(inputs, extra, tmp_path):
     _, src, model = inputs
-    args = ["--input", src, "--id-column", "rid", "--model-path", model,
-            "--window-size", "40", "--quiet", *extra]
-    jembed.main([*args, "--output", str(tmp_path / "jax.tsv")])
-    embed.main([*args, "--output", str(tmp_path / "port.tsv"), "--device", "cpu"])
-    ref, got = _read(tmp_path / "jax.tsv"), _read(tmp_path / "port.tsv")
+    ref, got = _run_both(src, model, 40, extra, tmp_path)
     assert got[0] == ref[0]
     assert len(got) == len(ref) > 1
     col = ref[0].index("embedding_vector")
@@ -79,6 +84,32 @@ def test_tsv_matches_jax_cli(inputs, extra, tmp_path):
     log = (tmp_path / "port.log").read_text()
     assert "skipped_invalid_structure: ID bad" in log
     assert "num_window_embeddings" in log
+
+
+@pytest.mark.parametrize("extra", [[], ["--keep-paired-neighbors", "--keep-cols", "rank,score"]])
+def test_typed_columns_match_jax_cli(inputs, extra, tmp_path):
+    """Ids and kept columns carry the types pandas gives them: ``007`` and
+    ``1e3`` are floats (``7.0``, ``1000.0``, so ``window_id`` is
+    ``7.0_0``), ``0.50`` prints as ``0.5``, and an int column with a gap
+    is float (``3.0``, ``NaN``).  Every line but the embedding is
+    byte-identical to the JAX CLI's."""
+    d, _, model = inputs
+    rng = np.random.default_rng(1)
+    s1, s2 = random_structure(rng, 50), random_structure(rng, 50)
+    src = tmp_path / "typed.csv"
+    src.write_text(f"rid,secondary_structure,score,rank\n007,{s1},0.50,3\n1e3,{s2},1.0,\n")
+    ref, got = _run_both(str(src), model, 45, extra, tmp_path)
+    col = ref[0].index("embedding_vector")
+    assert got[0] == ref[0] and len(got) == len(ref) == 13
+    for g, r in zip(got[1:], ref[1:]):
+        assert g[:col] + g[col + 1:] == r[:col] + r[col + 1:]
+        np.testing.assert_allclose(np.array(g[col].split(","), np.float64),
+                                   np.array(r[col].split(","), np.float64), atol=TOL, rtol=0)
+    rows = [dict(zip(got[0], g)) for g in got[1:]]
+    assert [rows[0][c] for c in ("window_id", "rid", "score", "rank")] == \
+        ["7.0_0", "7.0", "0.5", "3.0"]
+    assert [rows[-1][c] for c in ("window_id", "rid", "score", "rank")] == \
+        ["1000.0_5", "1000.0", "1.0", "NaN"]
 
 
 def test_no_windows_writes_header_only(inputs, tmp_path):

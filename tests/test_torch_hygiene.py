@@ -1,5 +1,5 @@
-"""Import and device hygiene of the port: its package and
-``chip_smoke.py`` import nothing the card's machine lacks (no jax,
+"""Import and device hygiene of the port: its package,
+``chip_smoke.py`` and ``k1_phases.py`` import nothing the card's machine lacks (no jax,
 flax, pandas, psutil, nor the JAX package), its entry points never run
 on the CPU unasked, and ``chip_smoke.py`` fails without a card."""
 
@@ -35,6 +35,7 @@ names = [m.name for m in pkgutil.walk_packages(ginfinity_tpu_torch.__path__,
 for n in names:
     importlib.import_module(n)
 import chip_smoke
+import k1_phases
 bad = [m for m in sys.modules if any(m == f or m.startswith(f + ".") for f in FORBIDDEN)]
 assert not bad, bad
 print(len(names))

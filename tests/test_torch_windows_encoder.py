@@ -203,3 +203,102 @@ def test_config_replace_keeps_gate():
     pc = GINConfig(hidden_dims=(128, 128), output_dim=128)
     assert we.windows_kernel_ok(pc)
     assert not we.windows_kernel_ok(dataclasses.replace(pc, hidden_dims=(96, 128)))
+
+
+# ---- what the kernel's tensor-core products consume (3xTF32) ------------
+
+
+def untile_weight(flat, din, dout):
+    """The transposed ``(hi, lo)`` parts, each ``[dout, din]``, of
+    ``we.tile_weight``'s output."""
+    t = flat.reshape(dout // we.TILE_N, din // we.TILE_K, 2, we.TILE_N // 8, we.TILE_K // 4, 8, 4)
+    t = t.permute(2, 0, 3, 5, 1, 4, 6).reshape(2, dout, din)
+    return t[0], t[1]
+
+
+def _tiled_parts(name="widths_256_512_512"):
+    kw, _ = CASES[name]
+    _, _, _, pc, pp, ps = _models(kw)
+    packed = we.pack_params(pc, pp, ps)
+    dims = we.layer_dims(pc)
+    base = we._LAYER_META * len(dims) + 3
+    out = []
+    for i, (din, dout) in enumerate(dims):
+        for j, (name_, kdim) in enumerate((("mlp0", din), ("mlp1", dout))):
+            off = int(packed.meta[base + 2 * i + j])
+            out.append((off, kdim, dout, pp["convs"][i][name_]["kernel"],
+                        packed.flat[off: off + 2 * kdim * dout]))
+    return packed, out
+
+
+def test_tiled_weights_offsets_and_layout():
+    """Per layer two new offsets after the existing meta entries, each on
+    a 128-byte boundary, holding W transposed in the kernel's stage order:
+    stage (n tile, k stage), then hi and lo, then 8 x 4 core matrices."""
+    packed, parts = _tiled_parts()
+    n_layers = len(parts) // 2
+    assert packed.meta.numel() == we._LAYER_META * n_layers + 3 + 2 * n_layers
+    end = 0
+    for off, kdim, dout, w, flat in parts:
+        assert off % 32 == 0 and off >= end
+        end = off + 2 * kdim * dout
+        hi, lo = untile_weight(flat, kdim, dout)
+        ref_hi, ref_lo = we.tf32_split(w.t())
+        assert torch.equal(hi, ref_hi) and torch.equal(lo, ref_lo)
+        # the stage image the kernel's descriptors read: element (n, k) of
+        # stage (nt, ks), part p at ((n//8 * TILE_K/4 + k//4) * 8 + n%8) * 4 + k%4
+        tn, tk = we.TILE_N, we.TILE_K
+        stage = flat.reshape(dout // tn, kdim // tk, 2, tn * tk)
+        for nt, ks, n, k in ((0, 0, 0, 0), (0, 1, 9, 5), (dout // tn - 1, kdim // tk - 1, 127, 15),
+                             (1 % (dout // tn), 3, 64, 10)):
+            pos = ((n // 8 * (tk // 4) + k // 4) * 8 + n % 8) * 4 + k % 4
+            assert stage[nt, ks, 0, pos] == ref_hi[nt * tn + n, ks * tk + k]
+            assert stage[nt, ks, 1, pos] == ref_lo[nt * tn + n, ks * tk + k]
+    assert packed.flat.numel() == end
+
+
+def test_tf32_parts_are_representable_and_rebuild_weights():
+    """hi and lo keep the low 13 mantissa bits zero (what the tensor cores
+    read), and hi + lo rebuilds each weight within 2^-22 relative."""
+    _, parts = _tiled_parts()
+    for _, kdim, dout, w, flat in parts:
+        hi, lo = untile_weight(flat, kdim, dout)
+        for part in (hi, lo):
+            assert int((part.view(torch.int32) & 0x1FFF).abs().max()) == 0
+        wt = w.t().double()
+        err = ((hi.double() + lo.double()) - wt).abs()
+        assert bool((err <= 2.0 ** -22 * wt.abs()).all())
+        assert float(lo.abs().max()) > 0  # the split is not trivial
+
+
+def test_tf32_round_is_round_to_nearest_away():
+    """``tf32_round`` is ``cvt.rna.tf32.f32``: to nearest, ties away."""
+    one = 1.0
+    ulp = 2.0 ** -10
+    x = torch.tensor([one + ulp / 2, -(one + ulp / 2), one + ulp / 2 - 2.0 ** -20,
+                      one + 1.5 * ulp, 0.0, -0.0], dtype=torch.float32)
+    got = we.tf32_round(x).tolist()
+    assert got[:4] == [one + ulp, -(one + ulp), one, one + 2 * ulp]
+    assert got[4] == 0.0 and str(got[5]) == "-0.0"
+
+
+@pytest.mark.parametrize("which", [0, 1, 3])
+def test_3xtf32_product_over_packed_parts_matches_float64(which):
+    """A plain emulation of the kernel's product, acc = lo*hi' + hi*lo' +
+    hi*hi' over the packed weight parts and the split activations,
+    accumulated in float32, against the float64 product.  Tolerance: the
+    float32 accumulation's own bound, K * 2^-23 * (|A| @ |W|) per
+    element (3xTF32 drops lo*lo', about 2^-22 relative per term)."""
+    _, parts = _tiled_parts()
+    _, kdim, dout, w, flat = parts[which]
+    hi, lo = untile_weight(flat, kdim, dout)
+    a = torch.from_numpy(np.random.default_rng(which).normal(size=(64, kdim))
+                         .astype(np.float32))
+    a_hi, a_lo = we.tf32_split(a)
+    got = a_lo @ hi.t() + a_hi @ lo.t() + a_hi @ hi.t()
+    ref = a.double() @ w.double()
+    bound = kdim * 2.0 ** -23 * (a.double().abs() @ w.double().abs())
+    assert bool(((got.double() - ref).abs() <= bound).all())
+    # a single TF32 pass does not meet it
+    one_pass = (a_hi @ hi.t()).double()
+    assert float(((one_pass - ref).abs() / bound).max()) > 1
