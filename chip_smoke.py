@@ -22,7 +22,11 @@ Each phase prints one JSON line with its name and seconds.  The
 build, K1, download, from CUDA events) and the CLI's host stages (CSV
 read, checkpoint load, prep, TSV write); ``kernel_timing`` gives K1's
 bound at the float32-accurate tensor-core rate (3xTF32) and, beside it,
-at the FMA units' float32 rate.  Before the
+at the FMA units' float32 rate, and times K2 on the route its wrapper
+takes (``ms``, one warp per pair) beside its CTA route (``cta_ms``, one
+CTA per pair) on the same inputs, in turns.  K2 is held to its plain
+version on both routes (``dp_kernel_vs_plain``), and the align path
+must take the warp route on every launch.  Before the
 last line it prints the card's name and power limit (as nvidia-smi
 gives them) and one JSON line of per-kernel numbers; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero without
@@ -36,6 +40,7 @@ import contextlib
 import csv
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -57,7 +62,14 @@ from ginfinity_tpu_torch.ops.dp import (
     paths_from_codes,
     wavefront_plain,
 )
-from ginfinity_tpu_torch.ops.dp_wavefront import barrier_probe, dp_wavefront, smem_limit
+from ginfinity_tpu_torch.ops.dp_wavefront import (
+    barrier_probe,
+    dp_wavefront,
+    launch,
+    rectangle_mask,
+    route,
+    smem_limit,
+)
 from ginfinity_tpu_torch.ops.windows_encoder import (
     _library,
     forward_windows,
@@ -324,33 +336,53 @@ def dp_tensors(mats, dev, L1=None, L2=None):
             torch.from_numpy(l2).to(dev), l1, l2)
 
 
-def dp_compare(mats, go, ge, mode, dev) -> tuple[float, list]:
-    """K2 against the plain wavefront on the same batch on the card:
-    identical paths and best cells, |score| within DP_TOL.  Returns the
-    max score difference and the plain version's (score, path) per pair."""
+def dp_compare(mats, go, ge, mode, dev, both=False) -> tuple[float, list, str]:
+    """K2 against the plain wavefront on the same batch on the card, on
+    the route the wrapper chooses and, with ``both``, on the CTA route
+    too when the wrapper chose the warp route: identical paths, best
+    cells and codes on every pair's rectangle, |score| within DP_TOL.
+    Returns the max score difference, the plain version's (score, path)
+    per pair and the route the wrapper took (read from the launch
+    counts)."""
     s, l1d, l2d, l1, l2 = dp_tensors(mats, dev)
-    got = [t.cpu().numpy() for t in dp_wavefront(s, l1d, l2d, go, ge, mode)]
+    n, n_warp = dp_wavefront.launches, dp_wavefront.warp_launches
+    runs = [dp_wavefront(s, l1d, l2d, go, ge, mode)]
+    took = "warp" if dp_wavefront.warp_launches > n_warp else "cta"
+    if dp_wavefront.launches != n + 1 or took != route(s.shape[1])[0]:
+        raise AssertionError(f"K2 took the {took} route at L1 = {s.shape[1]}")
+    if both and took == "warp":
+        runs.append(launch(("cta", 0), s, l1d, l2d, go, ge, mode))
     ref = [t.cpu().numpy() for t in wavefront_plain(s, l1d, l2d, go, ge, mode)]
-    err = float(np.abs(got[0] - ref[0]).max())
-    if not (err <= DP_TOL and np.isfinite(got[0]).all()):
-        raise AssertionError(f"K2 vs plain ({mode}, {go}, {ge}): |score| {err} > {DP_TOL}")
-    if not (np.array_equal(got[1], ref[1]) and np.array_equal(got[2], ref[2])):
-        raise AssertionError(f"K2 vs plain ({mode}, {go}, {ge}): best cells differ")
+    real = rectangle_mask(l1, l2, *s.shape[1:])
     paths = paths_from_codes(ref[3], l1, l2, ref[1], ref[2], mode)
-    if paths != paths_from_codes(got[3], l1, l2, got[1], got[2], mode):
-        raise AssertionError(f"K2 vs plain ({mode}, {go}, {ge}): paths differ")
-    return err, list(zip(ref[0].tolist(), paths))
+    errs = []
+    for rte, out in zip((took, "cta"), runs):
+        got = [t.cpu().numpy() for t in out]
+        err = float(np.abs(got[0] - ref[0]).max())
+        what = f"K2 ({rte}) vs plain ({mode}, {go}, {ge}, L1 = {s.shape[1]})"
+        if not (err <= DP_TOL and np.isfinite(got[0]).all()):
+            raise AssertionError(f"{what}: |score| {err} > {DP_TOL}")
+        if not (np.array_equal(got[1], ref[1]) and np.array_equal(got[2], ref[2])):
+            raise AssertionError(f"{what}: best cells differ")
+        if not np.array_equal(got[3][real], ref[3][real]):
+            raise AssertionError(f"{what}: codes differ on a pair's rectangle")
+        if paths != paths_from_codes(got[3], l1, l2, got[1], got[2], mode):
+            raise AssertionError(f"{what}: paths differ")
+        errs.append(err)
+    return max(errs), list(zip(ref[0].tolist(), paths)), took
 
 
 def dp_cases(rng: np.random.Generator, max_l1: int) -> dict:
     """The inputs K2 is held to its plain version on: seeded normal
     matrices with sides 3-384, integer-valued matrices (ties everywhere),
     the rectangular extremes 3x37 and 31x4, all-negative matrices (local
-    mode: an empty path) and one pair near the gate's upper limit."""
+    mode: an empty path), one pair near the gate's upper limit, and
+    normal matrices padded to each warp-route width from R = 4 to 16
+    rows a lane."""
     f32 = np.float32
     sides = [(3, 384), (384, 3), (384, 384)] + [
         (int(rng.integers(3, 385)), int(rng.integers(3, 385))) for _ in range(13)]
-    return {
+    cases = {
         "normal_3_384": [rng.normal(size=sz).astype(f32) for sz in sides],
         "integer_ties": [rng.integers(-2, 3, size=(int(rng.integers(20, 200)),
                                                    int(rng.integers(20, 200)))).astype(f32)
@@ -361,17 +393,38 @@ def dp_cases(rng: np.random.Generator, max_l1: int) -> dict:
                          -np.abs(rng.normal(size=(40, 25))).astype(f32)],
         f"near_gate_{max_l1}x8": [rng.normal(size=(max_l1, 8)).astype(f32)],
     }
+    for rows in (100, 170, 240, 300, 360, 500):  # R = 4, 6, 8, 10, 12, 16
+        sz = [(rows, int(rng.integers(rows // 2, rows + 40))),
+              (int(rng.integers(3, rows)), int(rng.integers(3, rows + 40)))]
+        cases[f"normal_{rows}_rows"] = [rng.normal(size=z).astype(f32) for z in sz]
+    return cases
 
 
-def dp_bounds(l1: np.ndarray, l2: np.ndarray, L1: int, L2: int) -> tuple[float, str, float]:
+def dp_bounds(l1: np.ndarray, l2: np.ndarray) -> tuple[float, str, float]:
     """Least time for K2's work on these pairs: the scores its cells read
-    (each real cell once) and the codes it writes ([B, L1+L2, L1+1]
-    bytes) over the memory rate, against DP_OPS_PER_CELL float32
-    operations per real cell over the float32 rate."""
+    (each real cell once) and the codes it must write (one byte for each
+    cell of each pair's rectangle, the only codes it specifies) over the
+    memory rate, against DP_OPS_PER_CELL float32 operations per real
+    cell over the float32 rate."""
     cells = float(((l1.astype(np.int64) + 1) * (l2.astype(np.int64) + 1)).sum())
-    nbytes = 4.0 * float((l1.astype(np.int64) * l2).sum()) + len(l1) * (L1 + L2) * (L1 + 1)
+    nbytes = 4.0 * float((l1.astype(np.int64) * l2).sum()) + cells
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, cells * DP_OPS_PER_CELL / F32_FLOPS
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes
+
+
+def ptxas_summary(log: str) -> dict:
+    """ptxas's registers, stack and spills of every kernel in ``build.log``,
+    by kernel; the warp route's instantiations as ``dp_warp_kernel<R,
+    global|local>``."""
+    out = {}
+    for name, props, used in re.findall(
+            r"Function properties for (\S+)\n\s*(.*)\nptxas info\s*: (Used .*)", log):
+        m = re.search(r"(\w+_kernel)(?:ILi(\d+)ELb([01])E)?E", name)
+        short = re.sub(r"^.*\d", "", m.group(1)) if m else name
+        if m and m.group(2):
+            short += f"<{m.group(2)}, {'local' if m.group(3) == '1' else 'global'}>"
+        out[short] = f"{used.strip()}; {props.strip()}"
+    return out
 
 
 @contextlib.contextmanager
@@ -410,8 +463,8 @@ def main() -> int:
         lib = _build.build_library()
         log = (lib.parent / "build.log").read_text()
         rec.update(library=os.path.relpath(lib, os.path.dirname(os.path.abspath(__file__))),
-                   ptxas=[ln.strip() for ln in log.splitlines()
-                          if "registers" in ln or "spill" in ln])
+                   ptxas=ptxas_summary(log),
+                   ptxas_notes=[ln.strip() for ln in log.splitlines() if "(C75" in ln])
 
     errs = []
     with phase("kernel_vs_plain", {"tolerance": TOL}) as rec:
@@ -437,17 +490,27 @@ def main() -> int:
         max_l1 = max(L for L in range(1, 20000) if dp_kernel_ok(L, 8, "global", limit))
         cases = dp_cases(np.random.default_rng(SEED + 5), max_l1)
         n_pairs = 0
+        pairs_by_route = {"warp": 0, "cta": 0}
+        case_routes = {}
         for mode in ("global", "local"):
             for go, ge in DP_GAPS:
                 for name, mats in cases.items():
-                    err, res = dp_compare(mats, go, ge, mode, dev)
+                    err, res, took = dp_compare(mats, go, ge, mode, dev, both=True)
                     if name == "all_negative" and mode == "local" and \
                             any(r != (0.0, []) for r in res):
                         raise AssertionError(f"local all-negative: {res} is not empty")
                     dp_errs.append(err)
                     n_pairs += len(mats)
-        rec.update(pairs_compared=n_pairs, max_abs_err=max(dp_errs), smem_optin=limit,
-                   gate_max_l1=max_l1, cases=sorted(cases))
+                    pairs_by_route[took] += len(mats)
+                    case_routes[name] = took
+        if case_routes.pop(f"near_gate_{max_l1}x8") != "cta" or \
+                set(case_routes.values()) != {"warp"}:
+            raise AssertionError(f"K2 routes: {case_routes}, near_gate not on the CTA route")
+        rec.update(pairs_compared=n_pairs, pairs_by_route=pairs_by_route,
+                   cta_route_pairs=n_pairs, warp_rows_per_lane=sorted(
+                       {route(max(m.shape[0] for m in ms))[1] for ms in cases.values()} - {0}),
+                   max_abs_err=max(dp_errs), codes_compared="each pair's rectangle",
+                   smem_optin=limit, gate_max_l1=max_l1, cases=sorted(cases))
 
     with tempfile.TemporaryDirectory() as tmp, phase("main_path", {"card": card}) as rec:
         cfg = GINConfig.create(**FLAGSHIP)
@@ -539,6 +602,7 @@ def main() -> int:
         n_pairs = ALIGN_RNAS * (ALIGN_RNAS - 1) // 2
 
         forward_windows.launches = dp_wavefront.launches = wavefront_plain.launches = 0
+        dp_wavefront.warp_launches = 0
         t0 = time.perf_counter()
         node_embed.main(["--input", src, "--id-column", "rid", "--output", nodes,
                          "--model-path", ckpt, "--keep-cols", "secondary_structure",
@@ -559,12 +623,16 @@ def main() -> int:
                     "--device", "cuda"])
         torch.cuda.synchronize()
         dp_launches, plain_launches = dp_wavefront.launches, wavefront_plain.launches
+        warp_launches = dp_wavefront.warp_launches
         window_launches = forward_windows.launches
         expected = -(-n_pairs // ALIGN_BATCH)
         if batch_launches != expected or dp_launches != expected + 1 or plain_launches:
             raise AssertionError(f"the align path launched K2 {batch_launches} + "
                                  f"{dp_launches - batch_launches} times (expected {expected}"
                                  f" + 1) and the plain DP {plain_launches} times")
+        if warp_launches != dp_launches:
+            raise AssertionError(f"{dp_launches - warp_launches} of the align path's "
+                                 f"{dp_launches} K2 launches took the CTA route")
 
         # node embeddings: one matrix per RNA, unit rows (zscore_l2), equal
         # on a sample to the port's CPU run of the same checkpoint
@@ -612,7 +680,7 @@ def main() -> int:
             t_sim, t_dev, t_host = t_sim + t1 - t0, t_dev + t2 - t1, t_host + t3 - t2
             dp_batches.append(sims)
         sims = dp_batches[0][:32]
-        err, plain_res = dp_compare(sims, -1.0, -1.0, "global", dev)
+        err, plain_res, recheck_route = dp_compare(sims, -1.0, -1.0, "global", dev)
         plain_scores = np.array([sc for sc, _ in plain_res])
         cli_err = float(np.abs(plain_scores - scores[:len(sims)]).max())
         if cli_err > DP_TOL:
@@ -623,11 +691,13 @@ def main() -> int:
                    align_batch_seconds=align_batch_s,
                    align_batch_pairs_per_s=n_pairs / align_batch_s,
                    dp_kernel_launches=dp_launches, dp_kernel_launches_batch_cli=batch_launches,
+                   dp_kernel_warp_launches=warp_launches,
                    window_kernel_launches=window_launches,
                    plain_dp_launches=plain_launches,
                    host_similarity_seconds=t_sim, device_dp_seconds=t_dev,
                    host_codes_dense_traceback_seconds=t_host,
-                   plain_recheck_pairs=len(sims), plain_recheck_max_abs_err=max(err, cli_err))
+                   plain_recheck_pairs=len(sims), plain_recheck_route=recheck_route,
+                   plain_recheck_max_abs_err=max(err, cli_err))
 
     with phase("kernel_timing", {"card": card}) as rec:
         p, s = model.params, model.state
@@ -647,20 +717,31 @@ def main() -> int:
                    max_abs_err=errs[-1])
 
         # K2 on the align path's first batch, as the CLI pads it and padded
-        # to 384 x 384; its dependency floor is the probe's time for the
-        # same number of diagonal steps in CTAs of the same shape
+        # to 384 x 384: the route the wrapper takes (ms, the warp route) and
+        # the CTA route (cta_ms) on the same inputs, in turns.  The
+        # dependency floor is the CTA route's: the probe's time for the same
+        # number of diagonal steps in CTAs of the same shape
         sims = dp_batches[0]
         dp_t = {}
         for key, L in (("batch", None), ("384", 384)):
             sd, l1d, l2d, l1, l2 = dp_tensors(sims, dev, L, L)
             B, L1, L2 = sd.shape
             run = (sd, l1d, l2d, -1.0, -1.0, "global")
-            k_ms = cuda_ms(lambda: dp_wavefront(*run), 20)
+            rte = route(L1)
+            times = {"warp": [], "cta": []}
+            for kind in ("warp", "cta", "cta", "warp"):
+                fn = (lambda: dp_wavefront(*run)) if kind == "warp" else \
+                    (lambda: launch(("cta", 0), *run))
+                times[kind].append(cuda_ms(fn, 10))
             p_ms = cuda_ms(lambda: wavefront_plain(*run), 2)
-            b_ms, b_by, nbytes = dp_bounds(l1, l2, L1, L2)
+            b_ms, b_by, nbytes = dp_bounds(l1, l2)
             dep_ms = cuda_ms(lambda: barrier_probe(B, L1 + L2, L1, dev), 20)
-            dp_t[key] = dict(pairs=B, L1=L1, L2=L2, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-                             bound_by=b_by, bytes=nbytes, dependency_floor_ms=dep_ms)
+            k_ms, c_ms = (sum(times[k]) / 2 for k in ("warp", "cta"))
+            dp_t[key] = dict(pairs=B, L1=L1, L2=L2, route=rte[0], rows_per_lane=rte[1],
+                             ms=k_ms, cta_ms=c_ms, ms_runs=times["warp"],
+                             cta_ms_runs=times["cta"], plain_ms=p_ms, bound_ms=b_ms,
+                             bound_by=b_by, bytes=nbytes, share_of_bound=b_ms / k_ms,
+                             dependency_floor_ms=dep_ms, dependency_floor_of="cta route")
         rec["dp_wavefront"] = dp_t
 
     print(card)
@@ -680,6 +761,7 @@ def main() -> int:
     }, {
         "name": "dp_wavefront",
         "route": "cuda",
+        "design": "warp-per-pair",
         "source": "ginfinity_tpu_torch/ops/csrc/dp_wavefront.cu",
         "replaces": "ginfinity_tpu/ops/pallas_dp.py:48",
         "launches": dp_launches,

@@ -13,7 +13,13 @@ places where a DP port goes wrong are each given a case:
 * boundaries: a non-dyadic gap set (-1.5, -0.3) shows a rounding or a
   fused multiply-add in ``go + (k - 1) ge`` in the score's last bits;
 * masking: rectangular extremes (3x37, 31x4) padded in one batch;
+* long pairs (up to 160 diagonals) for the warp route's score tiles;
 * local mode's first maximum and its all-negative case (empty path).
+
+The CUDA kernel's warp route cannot run here; a numpy model of its lane
+schedule (``_warp_model``) is held against the plain version instead,
+and the traceback is shown to read no code outside each pair's
+rectangle, the only cells the kernel specifies.
 """
 
 import numpy as np
@@ -23,7 +29,7 @@ from ginfinity_tpu.ops.dp import _traceback_global, _traceback_local
 from ginfinity_tpu.ops.dp import affine_align_batch as jalign
 from ginfinity_tpu.ops.pallas_dp import align_batch_pallas
 from ginfinity_tpu_torch.ops import dp
-from ginfinity_tpu_torch.ops.dp_wavefront import dp_wavefront
+from ginfinity_tpu_torch.ops.dp_wavefront import dp_wavefront, rectangle_mask, route
 
 TOL = 1e-4
 GAPS = [(-1.0, -1.0), (-2.0, -0.5), (-10.0, -0.5), (-1.5, -0.3)]
@@ -48,11 +54,35 @@ def _extremes(seed):
             rng.normal(size=(31, 4)).astype(np.float32)]
 
 
+def _long(seed):
+    """Pairs of 115-160 diagonals: the warp route refills its score tiles
+    (32 diagonals each) several times, at a padded L1 that lanes of R = 2
+    rows still cover."""
+    rng = np.random.default_rng(seed)
+    return [rng.normal(size=(60, 100)).astype(np.float32),
+            rng.normal(size=(20, 130)).astype(np.float32),
+            rng.integers(-2, 3, size=(45, 70)).astype(np.float32)]
+
+
+def _tied_maxima():
+    """Local mode's equal maxima: cells (2, 5) and (5, 2) of one diagonal
+    (rows of different lanes of the warp route at R = 2), and cells (1, 1)
+    and (6, 6) of two diagonals; the first maximum is the smallest d, then
+    the smallest i."""
+    a = np.full((8, 9), -1.0, np.float32)
+    a[1, 4] = a[4, 1] = 5.0
+    b = np.full((7, 7), -1.0, np.float32)
+    b[0, 0] = b[5, 5] = 3.0
+    return [a, b]
+
+
 CASES = {
     "normal": lambda: _normal(0),
     "normal_small": lambda: _normal(1, n=5, lo=3, hi=8),
     "integer_ties": lambda: _integer(2),
     "rect_3x37_31x4": lambda: _extremes(3),
+    "tied_maxima": _tied_maxima,
+    "long_60x100": lambda: _long(4),
 }
 
 
@@ -174,3 +204,190 @@ def test_kernel_gate(L1, ok):
     assert dp.dp_kernel_ok(L1, 500, "global") is ok
     assert dp.dp_kernel_ok(L1, 500, "local") is ok
     assert not dp.dp_kernel_ok(L1, 500, "semiglobal")
+
+
+def _plain(mats, gaps, mode):
+    """The plain wavefront on a padded batch: the padded scores, its
+    ``[best, bi, bj, codes]`` as numpy arrays, and ``l1, l2``."""
+    import torch
+
+    scores, l1, l2 = dp.pad_batch(mats)
+    out = dp.wavefront_plain(torch.from_numpy(scores), torch.from_numpy(l1),
+                             torch.from_numpy(l2), *gaps, mode)
+    return scores, [x.numpy() for x in out], l1, l2
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_traceback_reads_only_real_rectangle(mode):
+    """Every code byte outside each pair's rectangle (i > l1, j > l2, or
+    d > l1 + l2), overwritten with random bytes, leaves every path as it
+    was: the kernel may leave those bytes unwritten."""
+    rng = np.random.default_rng(11)
+    for case in sorted(CASES):
+        for gaps in (GAPS[0], GAPS[3]):
+            _, (best, bi, bj, codes), l1, l2 = _plain(CASES[case](), gaps, mode)
+            B, D, I = codes.shape
+            outside = ~rectangle_mask(l1, l2, I - 1, D - I + 1)
+            assert outside.any()
+            noisy = codes.copy()
+            noisy[outside] = rng.integers(0, 256, size=int(outside.sum()), dtype=np.uint8)
+            assert dp.paths_from_codes(noisy, l1, l2, bi, bj, mode) == \
+                dp.paths_from_codes(codes, l1, l2, bi, bj, mode)
+
+
+def _warp_cell(hup, eup, hdiag, hleft, fleft, s, i, j, valid, on_bound, go, ge, local):
+    """``dp_cell`` of ``csrc/dp_wavefront.cu`` over arrays of cells, float32."""
+    f32 = np.float32
+    neg = f32(dp.NEG)
+    e_from_h, e_from_e = hup + go, eup + ge
+    te = e_from_h < e_from_e
+    E = np.where(te, e_from_e, e_from_h)
+    f_from_h, f_from_f = hleft + go, fleft + ge
+    tf_neg = (neg + go) < (neg + ge)  # TF of (i, 0), from cell (i, -1)
+    tf = np.where((j == 0) & (i > 0), tf_neg, f_from_h < f_from_f)
+    F = np.where(f_from_h < f_from_f, f_from_f, f_from_h)
+    diag = hdiag + s
+    take_diag = (diag >= E) & (diag >= F)
+    e_ge_f = E >= F
+    H = np.where(take_diag, diag, np.where(e_ge_f, E, F))
+    th = np.where(take_diag, 0, np.where(e_ge_f, 1, 2))
+    if local:
+        stop = H <= 0
+        H, th = np.where(stop, f32(0), H), np.where(stop, 3, th)
+        H, th = np.where(on_bound, f32(0), H), np.where(on_bound, 3, th)
+    else:
+        def fma(k):  # go + (k - 1) ge rounded once, as __fmaf_rn
+            return (np.float64(go) + (k.astype(np.float64) - 1.0) * np.float64(ge)).astype(f32)
+        H = np.where(on_bound, np.where(i == 0, fma(j), fma(i)), H)
+        th = np.where(on_bound, np.where(i == 0, 2, 1), th)
+    E, F = np.where(on_bound, neg, E), np.where(on_bound, neg, F)
+    H, E, F = (np.where(valid, x, neg).astype(f32) for x in (H, E, F))
+    return H, E, F, (th | (te << 2) | (tf << 3)).astype(np.uint8)
+
+
+def _warp_model(scores, l1, l2, go, ge, mode, R, junk=np.nan):
+    """The warp route of ``csrc/dp_wavefront.cu`` (``dp_warp_kernel<R>``)
+    in numpy, one pair (one warp) at a time, indexed as the kernel is:
+    arrays ``[32 lanes, R]``, lane ``t`` holding rows ``tR .. tR+R-1``;
+    row ``tR - 1``'s H(d-1) and E(d-1) from lane ``t - 1`` (a shuffle up,
+    NEG on lane 0) and its H(d-2) carried from the step before; the
+    scores read from two tiles of 32 R rows x 32 floats, filled a block
+    of 32 diagonals at a time with the rows, the rotation and the copy
+    test the kernel uses, two blocks ahead (each copy, those of the two
+    blocks past the last diagonal too, is asserted to read a score of
+    the pair; cells that are not filled hold ``junk`` times seeded normal
+    values, as shared memory holds whatever it held: only interior cells
+    may depend on a score); the loop to the pair's own ``l1 + l2``; cells outside the
+    pair's rectangle left unmasked (they feed only each other, and the TF
+    bit of cell ``(i, 0)``, which the cell function takes as if
+    ``(i, -1)`` held NEG); codes stored for rows ``<= l1`` only (the rest stay 0xFF); each lane's first maximum
+    under a strict ``>`` in increasing ``i``, then the shuffle-down
+    reduction in the ``before`` order."""
+    local = mode == "local"
+    B, L1, L2 = scores.shape
+    assert R % 2 == 0 and 32 * R >= L1 + 1
+    f32 = np.float32
+    neg = f32(dp.NEG)
+    go, ge = f32(go), f32(ge)
+    rows = np.arange(32)[:, None] * R + np.arange(R)[None, :]
+    codes = np.full((B, L1 + L2, L1 + 1), 0xFF, np.uint8)
+    best = np.zeros(B, f32)
+    bi = np.zeros(B, np.int32)
+    bj = np.zeros(B, np.int32)
+    lanes = np.arange(32)
+
+    def above(x):  # __shfl_up_sync(x[:, R-1], 1), NEG on lane 0
+        return np.concatenate([[neg], x[:-1, R - 1]]).astype(f32)
+
+    def shifted(first, x):  # row i-1 of each cell: the lane above for r = 0
+        return np.concatenate([first[:, None], x[:, :-1]], axis=1)
+
+    W = 32  # diagonals a tile holds (kWarpSteps)
+
+    def load_tile(tile, S, p1, p2, d0):  # warp_load_tile<R>: lane k copies column k
+        k = np.arange(W)
+        lo, hi = max(1, d0 - p2), min(p1, d0 + W - 2)
+        g = lo // R
+        while g * R <= hi:
+            for r in range(R):
+                i, c = g * R + r, d0 - g * R - 1 + k - r
+                ok = (i >= lo) & (i <= hi) & (c >= 0) & (c < p2)
+                # every copy reads a score of the pair: row i - 1 < l1, column < l2
+                assert not ok.any() or (1 <= i <= p1 and (c[ok] < p2).all()), (d0, i)
+                tile[i, (k + g) % W] = np.where(ok, S[min(max(i, 1), L1) - 1,
+                                                     np.clip(c, 0, L2 - 1)], f32(0))
+            g += 1
+
+    for b in range(B):
+        p1, p2 = int(l1[b]), int(l2[b])
+        S = scores[b]
+        tiles = (np.random.default_rng(b).standard_normal((2, 32 * R, W)) * junk).astype(f32)
+        load_tile(tiles[0], S, p1, p2, 1)
+        load_tile(tiles[1], S, p1, p2, 1 + W)
+        h1 = np.where(rows == 0, f32(0), neg).astype(f32)
+        h2, e1, f1 = (np.full((32, R), neg, f32) for _ in range(3))
+        up_h2 = np.full(32, neg, f32)
+        my_v, my_d, my_i = np.zeros(32, f32), np.zeros(32, np.int64), np.zeros(32, np.int64)
+        for d in range(1, p1 + p2 + 1):
+            blk, dd = divmod(d - 1, W)
+            up_h1, up_e1 = above(h1), above(e1)
+            s = tiles[blk % 2][rows, (dd + np.arange(32)[:, None]) % W]
+            j = d - rows
+            valid = (rows <= p1) & (j >= 0) & (j <= p2)
+            on_bound = (rows == 0) | (j == 0)
+            # cells outside the rectangle are not masked (valid = True)
+            H, E, F, code = _warp_cell(shifted(up_h1, h1), shifted(up_e1, e1),
+                                       shifted(up_h2, h2), h1, f1, s, rows, j, True,
+                                       on_bound, go, ge, local)
+            store = rows <= p1
+            codes[b, d - 1, rows[store]] = code[store]
+            if local:
+                for r in range(R):
+                    take = valid[:, r] & ~on_bound[:, r] & (H[:, r] > my_v)
+                    my_v = np.where(take, H[:, r], my_v)
+                    my_d = np.where(take, d, my_d)
+                    my_i = np.where(take, rows[:, r], my_i)
+            h2, h1, e1, f1, up_h2 = h1, H, E, F, up_h1
+            if dd == W - 1 or d == p1 + p2:  # this tile is refilled two blocks ahead
+                load_tile(tiles[blk % 2], S, p1, p2, d - dd + 2 * W)
+        if not local:
+            t, r = divmod(p1, R)
+            best[b] = h1[t, r] if p1 + p2 > 0 else neg
+            bi[b], bj[b] = p1, p2
+            continue
+        for off in (16, 8, 4, 2, 1):  # __shfl_down_sync: out-of-range lanes read their own
+            src = np.where(lanes + off < 32, lanes + off, lanes)
+            v, dd, ii = my_v[src], my_d[src], my_i[src]
+            take = (v > my_v) | ((v == my_v) & ((dd < my_d) | ((dd == my_d) & (ii < my_i))))
+            my_v, my_d, my_i = (np.where(take, a, c) for a, c in
+                                ((v, my_v), (dd, my_d), (ii, my_i)))
+        best[b], bi[b], bj[b] = my_v[0], my_i[0], my_d[0] - my_i[0]
+    return best, bi, bj, codes
+
+
+@pytest.mark.parametrize("R, junk", [(2, 10.0), (4, np.nan), ("route", 1e30)],
+                         ids=["2", "4", "route"])
+@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("gaps", [GAPS[1], GAPS[3]], ids=lambda g: f"{g[0]}_{g[1]}")
+@pytest.mark.parametrize("mode", MODES)
+def test_warp_schedule_model_matches_plain(case, gaps, mode, R, junk):
+    """The warp route's lane schedule gives the plain version's best, best
+    cell and codes on every pair's rectangle, bit for bit, whatever the
+    score tiles hold where they are not filled."""
+    scores, (best, bi, bj, codes), l1, l2 = _plain(CASES[case](), gaps, mode)
+    if R == "route":
+        kind, R = route(scores.shape[1])
+        assert kind == "warp"
+    got = _warp_model(scores, l1, l2, *gaps, mode, R, junk)
+    np.testing.assert_array_equal(got[0], best)
+    np.testing.assert_array_equal(got[1], bi)
+    np.testing.assert_array_equal(got[2], bj)
+    real = rectangle_mask(l1, l2, *scores.shape[1:])
+    np.testing.assert_array_equal(got[3][real], codes[real])
+
+
+@pytest.mark.parametrize("L1, expected", [(1, ("warp", 2)), (300, ("warp", 10)),
+                                          (511, ("warp", 16)), (512, ("cta", 0)),
+                                          (8287, ("cta", 0))])
+def test_warp_route_choice(L1, expected):
+    assert route(L1) == expected
