@@ -15,7 +15,13 @@ GraphNorm, mean pool, zscore_l2):
   seeded structures of 150-350 nt, then
   ``ginfinity-align-node-embeddings-batch`` over all 2,016 pairs and
   ``ginfinity-align-node-embeddings`` on one pair (kernel K2, the
-  affine-gap DP wavefront).
+  affine-gap DP wavefront);
+* the graph path, ``ginfinity-embed`` without ``--window-size`` on 2,000
+  seeded structures, ``ginfinity-compute-distances`` over all pairs of
+  500 of them and with ``--top-k 10`` over all 2,000, and a warm
+  ``TopKSearcher`` on a 200,000 x 128 corpus in four storage modes
+  (torch products, no kernel of the port's own: it launches neither K1
+  nor K2, and the phase fails if either counter moves).
 
 Each phase prints one JSON line with its name and seconds.  The
 ``main_path`` line also splits the warm window pass (upload, window
@@ -26,7 +32,10 @@ at the FMA units' float32 rate, and times K2 on the route its wrapper
 takes (``ms``, one warp per pair) beside its CTA route (``cta_ms``, one
 CTA per pair) on the same inputs, in turns.  K2 is held to its plain
 version on both routes (``dp_kernel_vs_plain``), and the align path
-must take the warp route on every launch.  Before the
+must take the warp route on every launch.  ``graph_path`` prints
+structures/s, pairs/s, queries/s and recall@10 per storage mode, with the
+embed CLI's host stages and each search's Gram, tile top-k and re-score
+from CUDA events.  Before the
 last line it prints the card's name and power limit (as nvidia-smi
 gives them) and one JSON line of per-kernel numbers; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero without
@@ -38,6 +47,7 @@ from __future__ import annotations
 
 import contextlib
 import csv
+import io
 import json
 import os
 import re
@@ -76,7 +86,13 @@ from ginfinity_tpu_torch.ops.windows_encoder import (
     forward_windows_reference,
     pack_params,
 )
-from ginfinity_tpu_torch.pipelines import align, align_batch, embed, node_embed
+from ginfinity_tpu_torch.parallel.search import (
+    TopKSearcher,
+    _topk,
+    brute_force_topk,
+    recall_at_k,
+)
+from ginfinity_tpu_torch.pipelines import align, align_batch, distances, embed, node_embed
 from ginfinity_tpu_torch.pipelines.align import cosine_similarity_matrix
 from ginfinity_tpu_torch.pipelines.engine import InferenceEngine, preprocess_structures
 from ginfinity_tpu_torch.pipelines.fast_windows import (
@@ -87,6 +103,7 @@ from ginfinity_tpu_torch.pipelines.fast_windows import (
     _window_chunk,
     embed_corpus_windows,
 )
+from ginfinity_tpu_torch.graphs.batching import _round_capacity, batch_graphs, bucket_sizes
 from ginfinity_tpu_torch.utils.device import disable_tf32
 from ginfinity_tpu_torch.utils.io import read_table, write_tsv
 
@@ -107,6 +124,18 @@ DP_TOL = 1e-4              # |score| kernel vs plain version (0 expected)
 DP_OPS_PER_CELL = 10       # float32 adds and compares per DP cell
 ALIGN_RNAS = 64            # structures of the alignment path: 2,016 pairs
 ALIGN_BATCH = 64           # pairs per DP launch (the CLI's default)
+GRAPH_RNAS = 2_000         # structures of the graph path (~500k nodes)
+GRAPH_SAMPLE = 32          # of them re-embedded on the CPU
+PAIRS_RNAS = 500           # rows of the all-pairs run: 124,750 pairs
+TOP_K = 10
+# the warm search, at the size of bench.py's measure_search_quick
+SEARCH_ROWS, SEARCH_DIM, SEARCH_QUERIES = 200_000, 128, 1_024
+# recall@10 bars of tests/test_search.py: exact f32 modes 1.0, int8 with the
+# device re-score 1.0, bf16 storage with the device re-score 0.99
+SEARCH_MODES = (("f32", {}, 1.0), ("f32_host_merge", {"rescore": "host"}, 1.0),
+                ("bf16_storage", {"storage": "bf16"}, 0.99),
+                ("int8_storage", {"storage": "int8"}, 1.0))
+DIST_REL = 1e-5            # all-pairs distances against float64 numpy
 
 FLAGSHIP = dict(hidden_dim=128, output_dim=128, gin_layers=6,
                 pooling_type="global_mean_pool", node_embed_norm="zscore_l2",
@@ -427,6 +456,234 @@ def ptxas_summary(log: str) -> dict:
     return out
 
 
+def graph_embed_split(src: str, ckpt: str, out_tsv: str, dev) -> dict:
+    """The embed CLI's work again, stage by stage on the host clock: CSV
+    read, checkpoint load, graph build, then per planned batch the host's
+    padding and ``forward_once`` (upload and model; a CUDA event span over
+    all batches beside it), the one download, and the TSV text."""
+    t0 = time.perf_counter()
+    table = read_table(src)
+    t1 = time.perf_counter()
+    eng = InferenceEngine.from_checkpoint(ckpt, device=dev)
+    t2 = time.perf_counter()
+    graphs = preprocess_structures(table.column("secondary_structure"),
+                                   feature_dim=eng.config.node_feature_dim).graphs
+    t3 = time.perf_counter()
+    batch_s, parts, order = 0.0, [], []
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    t4 = time.perf_counter()
+    for idxs in eng._plan(graphs):
+        tb = time.perf_counter()
+        chunk = [graphs[i] for i in idxs]
+        batch = batch_graphs(chunk, *bucket_sizes(sum(g.n_nodes for g in chunk),
+                                                  sum(g.n_edges for g in chunk)),
+                             _round_capacity(len(chunk)))
+        batch_s += time.perf_counter() - tb
+        parts.append(eng.model.forward_once(batch)[: len(idxs)])
+        order += idxs
+    end.record()
+    torch.cuda.synchronize()
+    t5 = time.perf_counter()
+    emb = np.zeros((len(graphs), eng.config.output_dim), np.float32)
+    emb[order] = torch.cat(parts).cpu().numpy()
+    t6 = time.perf_counter()
+    rows = [{"rid": r["rid"], "embedding_vector": embed.format_embedding(e)}
+            for r, e in zip(table.rows, emb)]
+    write_tsv(out_tsv, ["rid", "embedding_vector"], rows)
+    t7 = time.perf_counter()
+    return dict(csv_read_s=t1 - t0, checkpoint_load_s=t2 - t1, graph_build_s=t3 - t2,
+                batches=len(parts), batch_pad_host_s=batch_s,
+                forward_s=t5 - t4 - batch_s, forward_device_span_ms=start.elapsed_time(end),
+                download_s=t6 - t5, tsv_write_s=t7 - t6)
+
+
+def check_top_k(rows: list, emb: np.ndarray, k: int) -> dict:
+    """The top-k CLI's rows against float64 distances: each query has its k
+    nearest rows, the distances agree with float64 within 1e-5 (|q|^2 +
+    |c|^2), and where a neighbour differs from ``brute_force_topk``'s the
+    two lie within that tolerance of each other (a near-tie)."""
+    e64 = emb.astype(np.float64)
+    sq = np.sum(e64 * e64, axis=1)
+    d64 = sq[:, None] - 2 * e64 @ e64.T + sq[None, :]
+    _, ref = brute_force_topk(emb, emb, k + 1)
+    got: dict = {}
+    for r in rows:
+        got.setdefault(int(r["rid_1"][3:]), []).append((int(r["rid_2"][3:]),
+                                                         float(r["distance"])))
+    if sorted(got) != list(range(len(emb))) or any(len(v) != k for v in got.values()):
+        raise AssertionError("top-k CLI: a query without its k neighbours")
+    swaps, worst = 0, 0.0
+    for q, nb in got.items():
+        ids = [c for c, _ in nb]
+        ref_ids = [c for c in ref[q] if c != q][:k]
+        for (c, d), rc in zip(nb, ref_ids):
+            tol = 1e-5 * (sq[q] + max(sq[c], sq[rc]))
+            worst = max(worst, abs(d - d64[q, c]) / tol)
+            if abs(d - d64[q, c]) > tol or c == q:
+                raise AssertionError(f"top-k CLI: query {q}, neighbour {c}: {d} vs {d64[q, c]}")
+            if c != rc:
+                swaps += 1
+                if abs(d64[q, c] - d64[q, rc]) > tol:
+                    raise AssertionError(f"top-k CLI: query {q} has {ids}, brute force "
+                                         f"{ref_ids}, and they are no near-tie")
+    return dict(top_k_pairs=len(rows), top_k_near_tie_swaps=swaps,
+                top_k_max_err_over_tol=worst)
+
+
+def search_run(corpus: np.ndarray, queries: np.ndarray, truth: np.ndarray, dev, **kw) -> dict:
+    """A warm ``TopKSearcher`` search: queries/s on the host clock (the
+    search returns host arrays), recall@k, and the first query block split
+    by CUDA events into the Gram over all tiles, the tiles' top-k, the
+    float32 re-score (compressed storage) and the rest (merges, copies)."""
+    k = truth.shape[1]
+    t0 = time.perf_counter()
+    s = TopKSearcher(corpus, device=dev, **kw)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    s.search(queries, k)
+    t0 = time.perf_counter()
+    _, ids = s.search(queries, k)
+    search_s = time.perf_counter() - t0
+    with torch.no_grad():
+        q = torch.from_numpy(queries[: s.query_block]).to(dev)
+        n_tiles = s._corpus.shape[0] // s.corpus_tile
+        block_ms = cuda_ms(lambda: s._search_block(q, k), 5)
+        q_mat, q_scale = s._query_matrix(q)
+        gram_ms = n_tiles * cuda_ms(lambda: s._gram(q_mat, q_scale, 0, s.corpus_tile), 10)
+        scores = s._gram(q_mat, q_scale, 0, s.corpus_tile)
+        row_ids = torch.arange(s.corpus_tile, device=dev)
+        k_tile = s._k_tile(k) if (s._f32_fast or s._dev_rescore) else k
+        select_ms = n_tiles * cuda_ms(lambda: _topk(scores, row_ids, k_tile), 10)
+        rescore_ms = 0.0
+        if s._dev_rescore:
+            cv, ci = s._scan(q, k_tile)
+            rescore_ms = cuda_ms(lambda: s._refine(q, cv, ci, k), 10)
+    nq = queries.shape[0]
+    return dict(queries=nq, k=k, tiles=n_tiles, corpus_tile=s.corpus_tile, build_s=build_s,
+                search_s=search_s, queries_per_s=nq / search_s,
+                recall_at_k=recall_at_k(ids, truth), block_ms=block_ms, gram_ms=gram_ms,
+                tile_topk_ms=select_ms, rescore_ms=rescore_ms,
+                rest_ms=block_ms - gram_ms - select_ms - rescore_ms,
+                gram_at_f32_fma_rate_ms=1e3 * 2.0 * q.shape[0] * s.n * s.dim / F32_FLOPS)
+
+
+def graph_path(tmp: str, cfg, dev) -> dict:
+    """Whole-structure embeddings, all-pairs distances, the top-k CLI and a
+    warm search, through the port's entry points; returns the phase's
+    record.  Launches neither K1 nor K2."""
+    rng = np.random.default_rng(SEED + 5)
+    rnas = [random_structure(rng, int(rng.integers(150, 351))) for _ in range(GRAPH_RNAS)]
+    params, state = seeded_model(cfg, SEED + 5)
+    ckpt = os.path.join(tmp, "flagship.pth")
+    export_torch_checkpoint(ckpt, cfg, params, state)
+    src = os.path.join(tmp, "structures.csv")
+    with open(src, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["rid", "secondary_structure"])
+        w.writerows((f"rna{i}", s) for i, s in enumerate(rnas))
+    out = os.path.join(tmp, "graphs.tsv")
+    rec = dict(structures=GRAPH_RNAS, nodes=sum(len(s) for s in rnas))
+
+    forward_windows.launches = dp_wavefront.launches = wavefront_plain.launches = 0
+    dp_wavefront.warp_launches = 0
+    t0 = time.perf_counter()
+    embed.main(["--input", src, "--id-column", "rid", "--output", out, "--model-path", ckpt,
+                "--quiet", "--device", str(dev)])
+    torch.cuda.synchronize()
+    rec.update(embed_cli_seconds=time.perf_counter() - t0)
+    rec["structures_per_s"] = GRAPH_RNAS / rec["embed_cli_seconds"]
+
+    with open(out, newline="") as f:
+        rows = list(csv.DictReader(f, delimiter="\t"))
+    emb = distances.parse_embedding_column([r["embedding_vector"] for r in rows])
+    if [r["rid"] for r in rows] != [f"rna{i}" for i in range(GRAPH_RNAS)]:
+        raise AssertionError("graph TSV: rows missing or out of order")
+    if emb.shape != (GRAPH_RNAS, cfg.output_dim) or not np.isfinite(emb).all():
+        raise AssertionError(f"graph TSV: embeddings of shape {emb.shape} or not finite")
+    take = np.random.default_rng(SEED + 6).choice(GRAPH_RNAS, GRAPH_SAMPLE, replace=False)
+    cpu = InferenceEngine.from_checkpoint(ckpt, device="cpu").embed_graphs(
+        preprocess_structures([rnas[i] for i in take]).graphs)
+    rec["sample_max_abs_err_vs_cpu"] = float(np.abs(cpu - emb[take]).max())
+    if rec["sample_max_abs_err_vs_cpu"] > TOL:
+        raise AssertionError(f"graph embeddings vs the CPU: max abs "
+                             f"{rec['sample_max_abs_err_vs_cpu']} > {TOL}")
+    rec["embed_split"] = graph_embed_split(src, ckpt, os.path.join(tmp, "split.tsv"), dev)
+
+    # all pairs of the first rows, through the distances CLI
+    pairs_in = os.path.join(tmp, "pairs_in.tsv")
+    with open(out) as f, open(pairs_in, "w") as g:
+        g.writelines(line for _, line in zip(range(PAIRS_RNAS + 1), f))
+    pairs_out = os.path.join(tmp, "pairs.tsv")
+    said = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(said):
+        distances.main(["--input", pairs_in, "--output", pairs_out, "--id-column", "rid",
+                        "--device", str(dev)])
+    all_pairs_s = time.perf_counter() - t0
+    n_pairs = PAIRS_RNAS * (PAIRS_RNAS - 1) // 2
+    if f"Finished processing {n_pairs} pairs." not in said.getvalue():
+        raise AssertionError(f"distances CLI said {said.getvalue()!r}")
+    with open(pairs_out, newline="") as f:
+        prow = list(csv.DictReader(f, delimiter="\t"))
+    i1, i2 = distances.all_pairs_indices(PAIRS_RNAS)
+    if len(prow) != n_pairs or [(r["rid_1"], r["rid_2"]) for r in prow[:3]] != \
+            [(f"rna{a}", f"rna{b}") for a, b in zip(i1[:3], i2[:3])]:
+        raise AssertionError("all-pairs TSV: wrong rows")
+    sel = np.random.default_rng(SEED + 7).choice(n_pairs, min(n_pairs, 2_000), replace=False)
+    d = np.array([float(prow[j]["distance"]) for j in sel])
+    e64 = emb[:PAIRS_RNAS].astype(np.float64)
+    d64 = np.sum((e64[i1[sel]] - e64[i2[sel]]) ** 2, axis=1)
+    rel = np.abs(d - d64) / np.maximum(d64, 1e-30)
+    rec.update(pairs=n_pairs, all_pairs_seconds=all_pairs_s, pairs_per_s=n_pairs / all_pairs_s,
+               pairs_checked=len(sel), pairs_max_rel_err=float(rel.max()))
+    if not (np.isfinite(d).all() and rel.max() <= DIST_REL):
+        raise AssertionError(f"all-pairs distances vs float64: relative {rel.max()} > {DIST_REL}")
+    t0 = time.perf_counter()
+    table = read_table(pairs_in, sep="\t")
+    t1 = time.perf_counter()
+    pe = distances.parse_embedding_column(table.column("embedding_vector"))
+    t2 = time.perf_counter()
+    distances.pair_distances(pe, i1, i2, device=dev)
+    t3 = time.perf_counter()
+    rec["all_pairs_split"] = dict(tsv_read_s=t1 - t0, parse_s=t2 - t1, device_s=t3 - t2,
+                                  tsv_write_s_by_difference=all_pairs_s - (t3 - t0))
+
+    # the nearest rows of every row, through the CLI's --top-k
+    topk_out = os.path.join(tmp, "topk.tsv")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        distances.main(["--input", out, "--output", topk_out, "--id-column", "rid",
+                        "--top-k", str(TOP_K), "--device", str(dev)])
+    rec["top_k_cli_seconds"] = time.perf_counter() - t0
+    with open(topk_out, newline="") as f:
+        rec.update(check_top_k(list(csv.DictReader(f, delimiter="\t")), emb, TOP_K))
+
+    # a warm search of a corpus as bench.py's measure_search_quick builds it
+    srng = np.random.default_rng(SEED + 8)
+    corpus = srng.normal(size=(SEARCH_ROWS, SEARCH_DIM)).astype(np.float32)
+    queries = corpus[srng.integers(0, SEARCH_ROWS, size=SEARCH_QUERIES)] + \
+        0.05 * srng.normal(size=(SEARCH_QUERIES, SEARCH_DIM)).astype(np.float32)
+    c64 = torch.from_numpy(corpus).to(dev, torch.float64)
+    q64 = torch.from_numpy(queries).to(dev, torch.float64)
+    d = (q64 * q64).sum(1)[:, None] - 2.0 * q64 @ c64.T + (c64 * c64).sum(1)[None, :]
+    truth = torch.topk(d, TOP_K, dim=1, largest=False).indices.cpu().numpy()
+    del c64, q64, d
+    rec["search"] = {}
+    for name, kw, bar in SEARCH_MODES:
+        res = search_run(corpus, queries, truth, dev, **kw)
+        rec["search"][name] = res
+        if res["recall_at_k"] < bar:
+            raise AssertionError(f"search {name}: recall@{TOP_K} {res['recall_at_k']} < {bar}")
+    torch.cuda.synchronize()
+    rec.update(window_kernel_launches=forward_windows.launches,
+               dp_kernel_launches=dp_wavefront.launches,
+               plain_dp_launches=wavefront_plain.launches)
+    if forward_windows.launches or dp_wavefront.launches or wavefront_plain.launches:
+        raise AssertionError("the graph path launched K1 or K2")
+    return rec
+
+
 @contextlib.contextmanager
 def phase(name: str, record: dict):
     t0 = time.perf_counter()
@@ -698,6 +955,9 @@ def main() -> int:
                    host_codes_dense_traceback_seconds=t_host,
                    plain_recheck_pairs=len(sims), plain_recheck_route=recheck_route,
                    plain_recheck_max_abs_err=max(err, cli_err))
+
+    with tempfile.TemporaryDirectory() as tmp, phase("graph_path", {"card": card}) as rec:
+        rec.update(graph_path(tmp, cfg, dev))
 
     with phase("kernel_timing", {"card": card}) as rec:
         p, s = model.params, model.state

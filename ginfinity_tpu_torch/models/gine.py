@@ -1,7 +1,8 @@
 """GINE encoder configuration, parameters and shared layer helpers.
 
 Port of the parts of ``ginfinity_tpu/models/gine.py`` that the windowed
-embedding path and the node-embedding path use.  Parameters keep the JAX package's tree layout —
+embedding path, the node-embedding path and the whole-structure graph
+embedding path use.  Parameters keep the JAX package's tree layout —
 nested dicts with ``[in, out]`` dense kernels — so the fused window
 forward reads like its JAX counterpart and a JAX parameter tree carries
 over key for key (``models/checkpoint.py::params_from_jax``).
@@ -281,6 +282,34 @@ def get_node_embeddings(config: GINConfig, params: Params, state: State,
     return x
 
 
+def pool_and_project(config: GINConfig, params: Params, x: torch.Tensor,
+                     batch: GraphBatch) -> torch.Tensor:
+    """Graph pooling over real nodes, then ``fc``; ``[G, output_dim]``
+    with the trash segment dropped.  Mean pooling divides by the real
+    node count, at least 1."""
+    if config.pooling_type == "set2set":
+        raise NotImplementedError(
+            "set2set pooling is not ported yet (ROADMAP queue 1, item 2)"
+        )
+    pooled = _segment_sum(x * batch.node_mask[:, None], batch.node_graph, batch.num_graphs + 1)
+    if config.pooling_type == "global_mean_pool":
+        pooled = pooled / torch.clamp(_graph_counts(batch), min=1.0)[:, None]
+    return _dense(pooled, params["fc"])[: batch.num_graphs]
+
+
+def forward_once(config: GINConfig, params: Params, state: State, batch: GraphBatch,
+                 *, normalize_nodes_before_pool: bool | None = None,
+                 train: bool = False) -> torch.Tensor:
+    """Graph embeddings ``[G, output_dim]``: node embeddings, node-normalised
+    when ``normalize_nodes_before_pool`` (default: the config's), pooled
+    and projected."""
+    if normalize_nodes_before_pool is None:
+        normalize_nodes_before_pool = config.normalize_nodes_before_pool
+    x = get_node_embeddings(config, params, state, batch,
+                            apply_norm=normalize_nodes_before_pool, train=train)
+    return pool_and_project(config, params, x, batch)
+
+
 def listify(node):
     """Turn dicts keyed "0".."n-1" of a nested tree into lists."""
     if not isinstance(node, dict):
@@ -358,6 +387,12 @@ class GINModel(nn.Module):
         """Node embeddings of a batch on the model's device."""
         return get_node_embeddings(self.config, self.params, self.state,
                                    batch.to(self.device), apply_norm=apply_norm)
+
+    @torch.no_grad()
+    def forward_once(self, batch: GraphBatch) -> torch.Tensor:
+        """Graph embeddings ``[G, output_dim]`` of a batch on the model's
+        device."""
+        return forward_once(self.config, self.params, self.state, batch.to(self.device))
 
     def packed_windows(self):
         """The window kernel's flat parameter buffer for the model's

@@ -2,10 +2,11 @@
 
 Port of ``ginfinity_tpu/pipelines/embed.py``: the same flags and
 defaults, the same TSV schema (``embedding_vector`` as comma-joined
-``%.6f`` strings, window columns first).  This slice runs the fused
-sliding-window mode (``--window-size``) on the GPU, or on the CPU with
-``--device cpu``.  The other modes raise ``NotImplementedError`` naming
-the ROADMAP item that ports them.
+``%.6f`` strings, window columns first).  Two modes run on the GPU, or
+on the CPU with ``--device cpu``: whole-structure graph embeddings (the
+default) and the fused sliding-window mode (``--window-size``).  The
+other modes raise ``NotImplementedError`` naming the ROADMAP item that
+ports them.
 """
 
 from __future__ import annotations
@@ -28,6 +29,85 @@ from ginfinity_tpu_torch.utils.io import (
 
 def format_embedding(vec) -> str:
     return ",".join(map("{:.6f}".format, np.asarray(vec).ravel().tolist()))
+
+
+def generate_embeddings(
+    input_table: Table,
+    output_path: str,
+    model_path: str,
+    log_path: str | None,
+    structure_column: str,
+    id_column: str,
+    batch_nodes: int = 8192,
+    keep_cols: list | None = None,
+    quiet: bool = False,
+    graph_encoding_override: str | None = None,
+    seq_weight_override: float | None = None,
+    sequence_column: str = "sequence",
+    device=None,
+):
+    """One graph embedding per valid structure: the id column, then
+    ``window_start``/``window_end`` when present, ``embedding_vector``,
+    and the other kept columns sorted.  With no valid structure the TSV
+    holds the header alone."""
+    from ginfinity_tpu_torch.pipelines.engine import InferenceEngine, preprocess_structures
+
+    final_keep = [id_column]
+    if "seq_len" in input_table.columns:
+        final_keep.append("seq_len")
+    if keep_cols:
+        final_keep.extend(keep_cols)
+
+    engine = InferenceEngine.from_checkpoint(model_path, device=device,
+                                             max_nodes_per_batch=batch_nodes)
+    cfg = engine.config
+    graph_encoding = (graph_encoding_override or cfg.graph_encoding or "standard").lower()
+    if graph_encoding not in {"standard", "forgi"}:
+        raise ValueError(f"Unsupported graph encoding '{graph_encoding}'")
+    seq_weight = (
+        float(seq_weight_override) if seq_weight_override is not None else cfg.seq_weight
+    )
+    seq_weight = max(0.0, min(1.0, seq_weight))
+
+    structures = input_table.column(structure_column)
+    sequences = (
+        input_table.column(sequence_column) if sequence_column in input_table.columns else None
+    )
+    pre = preprocess_structures(
+        structures, sequences,
+        graph_encoding=graph_encoding, seq_weight=seq_weight,
+        feature_dim=cfg.node_feature_dim,
+    )
+    row_ids = input_table.column(id_column)
+    for pos, reason in pre.skipped:
+        log_information(log_path, {f"skipped_{reason}": f"ID {row_ids[pos]}"})
+
+    if not pre.graphs:
+        # the promised file exists with its header, so a later step fails
+        # on its content (no rows), not on a missing file
+        print("No valid structures to process.")
+        write_tsv(output_path, final_keep + ["embedding_vector"], [])
+        log_information(log_path, {"num_embeddings": 0}, "generate_embeddings")
+        return
+
+    embeddings = engine.embed_graphs(pre.graphs)
+
+    rows = []
+    for k, pos in enumerate(pre.kept_indices):
+        base = input_table.rows[pos]
+        out = {c: base[c] for c in final_keep if c in base}
+        out["embedding_vector"] = format_embedding(embeddings[k])
+        rows.append(out)
+
+    present = []
+    for r in rows:
+        present += [c for c in r if c not in present]
+    cols = [id_column] + [c for c in ("window_start", "window_end") if c in present]
+    cols.append("embedding_vector")
+    write_tsv(output_path, cols + sorted(c for c in present if c not in cols), rows)
+    log_information(log_path, {"num_embeddings": len(rows)}, "generate_embeddings")
+    if not quiet:
+        print(f"Embeddings saved to {output_path}")
 
 
 def generate_window_embeddings(
@@ -189,15 +269,26 @@ def main(argv=None):
                   "visible; running unsharded")
     if args.graph_pt:
         raise NotImplementedError(
-            "--graph-pt embedding is not ported yet (ROADMAP queue 1, item 5)"
+            "--graph-pt embedding is not ported yet (ROADMAP queue 1, item 6)"
         )
 
-    if args.window_size is None:
-        raise NotImplementedError(
-            "embedding whole structures (no --window-size) is not ported yet "
-            "(ROADMAP queue 1, item 5)"
-        )
     table, log_path, propagate = setup_and_read_input(args, need_model=True)
+    if args.window_size is None:
+        generate_embeddings(
+            input_table=table,
+            output_path=args.output,
+            model_path=args.model_path,
+            log_path=log_path,
+            structure_column=args.structure_column_name,
+            id_column=args.id_column,
+            batch_nodes=args.batch_nodes,
+            keep_cols=propagate,
+            quiet=args.quiet,
+            graph_encoding_override=args.graph_encoding,
+            seq_weight_override=args.seq_weight,
+            device=device,
+        )
+        return
     if args.window_size < 2:
         sys.exit("ERROR: --window-size must be >= 2.")
     generate_window_embeddings(

@@ -3,11 +3,12 @@
 Port of ``ginfinity_tpu/pipelines/engine.py``: host-side graph
 preprocessing, feature-width adaptation, and size-ordered greedy packing
 into padded batches (``graphs/batching.py``).  Each planned batch is one
-:class:`GraphBatch` moved to the device, run, and downloaded before the
-next.  The JAX package's stacked ``lax.map`` groups and backend warm-up
-are XLA machinery with no counterpart here; graph embeddings
-(``embed_graphs``) belong to the non-window embedding path (ROADMAP
-queue 1, item 5).
+:class:`GraphBatch` moved to the device and run.  Graph embeddings
+(``embed_graphs``) stay on the device until the last batch and come down
+in one copy; node embeddings come down batch by batch.  The JAX
+package's wire format, stacked ``lax.map`` groups, backend warm-up and
+``mesh`` are XLA machinery with no counterpart here (several cards:
+ROADMAP queue 1, item 11).
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import dataclasses
 from typing import Sequence
 
 import numpy as np
+import torch
 
 from ginfinity_tpu_torch.graphs.batching import batch_graphs, bucket_sizes, plan_batches, _round_capacity
 from ginfinity_tpu_torch.graphs.build import GraphArrays, build_graph_arrays
@@ -135,19 +137,36 @@ class InferenceEngine:
     def _plan(self, graphs: Sequence[GraphArrays]) -> list[list[int]]:
         return plan_batches(graphs, self.max_nodes_per_batch, self.max_graphs_per_batch)
 
+    def _batches(self, graphs: Sequence[GraphArrays]):
+        """``(idxs, batch)`` for each planned batch, in plan order."""
+        for idxs in self._plan(graphs):
+            chunk = [graphs[i] for i in idxs]
+            n_cap, e_cap = bucket_sizes(sum(g.n_nodes for g in chunk),
+                                        sum(g.n_edges for g in chunk))
+            yield idxs, batch_graphs(chunk, n_cap, e_cap, _round_capacity(len(chunk)))
+
+    def embed_graphs(self, graphs: Sequence[GraphArrays]) -> np.ndarray:
+        """Graph embeddings ``[len(graphs), output_dim]`` float32, in input
+        order."""
+        out = np.zeros((len(graphs), self.config.output_dim), np.float32)
+        order, parts = [], []
+        for idxs, batch in self._batches(graphs):
+            parts.append(self.model.forward_once(batch)[: len(idxs)])
+            order += idxs
+        if parts:
+            out[order] = torch.cat(parts).cpu().numpy()
+        return out
+
     def node_embeddings(self, graphs: Sequence[GraphArrays],
                         base_only: bool = True) -> list[np.ndarray]:
         """Per-graph ``[L_i, D]`` node-embedding matrices, in input order;
         ``base_only`` drops non-base (forgi meta) nodes."""
         results: list[np.ndarray | None] = [None] * len(graphs)
-        for idxs in self._plan(graphs):
-            chunk = [graphs[i] for i in idxs]
-            n_cap, e_cap = bucket_sizes(sum(g.n_nodes for g in chunk),
-                                        sum(g.n_edges for g in chunk))
-            batch = batch_graphs(chunk, n_cap, e_cap, _round_capacity(len(chunk)))
+        for idxs, batch in self._batches(graphs):
             xs = self.model.get_node_embeddings(batch).cpu().numpy()
             off = 0
-            for gi, g in zip(idxs, chunk):
+            for gi in idxs:
+                g = graphs[gi]
                 take = g.n_base_nodes if base_only else g.n_nodes
                 results[gi] = xs[off: off + take].copy()
                 off += g.n_nodes

@@ -10,8 +10,10 @@ JAX package reads every table through pandas): ``int`` when every cell
 is an integer, ``float`` when every cell is a number and one is a float
 or missing, ``bool`` for ``True``/``False`` columns, otherwise the cell
 text.  A missing cell (empty, or one of pandas' NA strings) is ``None``
-and is written back as ``NaN``; a float is written as ``repr`` writes
-it (``7.0``, ``0.5``), as ``DataFrame.to_csv`` does.
+and is written back as ``NaN``; a float is written as ``DataFrame.to_csv``
+writes it: a Python or float64 value as ``repr`` (``7.0``, ``0.5``), a
+float32 value as the shortest text that reads back to it
+(``0.33333334``).
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ import platform
 import re
 import sys
 from datetime import datetime
+
+import numpy as np
 
 # pandas' default NA strings (``pandas.read_csv(na_values=None)``)
 _NA = frozenset({
@@ -98,14 +102,24 @@ def read_table_auto(path: str) -> Table:
     return read_table(path, csv.Sniffer().sniff(first).delimiter)
 
 
-def write_tsv(path: str, columns: list[str], rows: list[dict]) -> None:
-    """Write rows as a TSV with a header; a missing cell reads ``NaN``
-    and a float its ``repr``."""
+def _cell(v, na_rep: str):
+    if v is None:
+        return na_rep
+    if isinstance(v, np.float32):
+        return str(v)  # numpy's shortest float32 text, as pandas writes it
+    return v
+
+
+def write_tsv(path: str, columns: list[str], rows: list, na_rep: str = "NaN") -> None:
+    """Write rows (dicts keyed by column, or lists in column order) as a
+    TSV with a header; a missing cell reads ``na_rep``, a float32 cell
+    its shortest text and any other float its ``repr``."""
     with open(path, "w", newline="") as f:
         w = csv.writer(f, delimiter="\t", lineterminator="\n")
         w.writerow(columns)
         for r in rows:
-            w.writerow(["NaN" if r.get(c) is None else r[c] for c in columns])
+            cells = [r.get(c) for c in columns] if isinstance(r, dict) else r
+            w.writerow([_cell(v, na_rep) for v in cells])
 
 
 def get_system_info() -> dict:

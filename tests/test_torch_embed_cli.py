@@ -149,7 +149,6 @@ def test_parser_is_flag_superset_with_same_defaults():
     (["--graph-pt", "g.npz", "--meta-tsv", "m.tsv"], NotImplementedError),
     (["--graph-pt", "g.npz"], SystemExit),
     (["--wire", "f16"], SystemExit),
-    ([], NotImplementedError),  # no --window-size: the whole-structure path
 ])
 def test_unported_modes_raise(inputs, extra, exc, tmp_path):
     _, src, model = inputs

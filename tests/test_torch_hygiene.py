@@ -56,8 +56,11 @@ def test_port_and_smoke_import_without_forbidden_packages():
 
 
 def test_entry_points_refuse_the_cpu_unasked(monkeypatch, tmp_path):
+    import numpy as np
+
     from ginfinity_tpu_torch.models.gine import GINConfig, GINModel, init_params
-    from ginfinity_tpu_torch.pipelines import embed
+    from ginfinity_tpu_torch.parallel.search import TopKSearcher
+    from ginfinity_tpu_torch.pipelines import distances, embed
     from ginfinity_tpu_torch.pipelines.fast_windows import embed_corpus_windows
     from ginfinity_tpu_torch.utils.device import resolve_device
 
@@ -71,6 +74,12 @@ def test_entry_points_refuse_the_cpu_unasked(monkeypatch, tmp_path):
         lambda: embed.main(["--input", "x.csv", "--id-column", "id", "--window-size",
                             "20", "--model-path", "m.pth",
                             "--output", str(tmp_path / "o.tsv")]),
+        lambda: embed.main(["--input", "x.csv", "--id-column", "id", "--model-path", "m.pth",
+                            "--output", str(tmp_path / "o.tsv")]),
+        lambda: distances.main(["--input", "x.tsv", "--output", str(tmp_path / "d.tsv")]),
+        lambda: distances.pair_distances(np.zeros((2, 4), np.float32), np.array([0]),
+                                         np.array([1])),
+        lambda: TopKSearcher(np.zeros((4, 8), np.float32)),
     ):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
