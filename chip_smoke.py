@@ -21,7 +21,16 @@ GraphNorm, mean pool, zscore_l2):
   500 of them and with ``--top-k 10`` over all 2,000, and a warm
   ``TopKSearcher`` on a 200,000 x 128 corpus in four storage modes
   (torch products, no kernel of the port's own: it launches neither K1
-  nor K2, and the phase fails if either counter moves).
+  nor K2, and the phase fails if either counter moves);
+* the model variants, at the flagship's width: a forgi flagship and the
+  flagship with layer, instance or batch norm or with Set2Set pooling,
+  each through ``ginfinity-embed`` on 500 seeded structures and with
+  ``--window-size 120 --keep-paired-neighbors`` on about 2,000 windows
+  (the forgi flagship's windows go through K1, the others' through the
+  compact path, which launches no kernel of the port's own); the forgi
+  flagship also through ``ginfinity-generate-node-embeddings`` on 32
+  structures and through the two-step flow (the windows CLI, then
+  ``embed --graph-pt`` on its ``.npz`` and its ``.pt``).
 
 Each phase prints one JSON line with its name and seconds.  The
 ``main_path`` line also splits the warm window pass (upload, window
@@ -35,7 +44,10 @@ version on both routes (``dp_kernel_vs_plain``), and the align path
 must take the warp route on every launch.  ``graph_path`` prints
 structures/s, pairs/s, queries/s and recall@10 per storage mode, with the
 embed CLI's host stages and each search's Gram, tile top-k and re-score
-from CUDA events.  Before the
+from CUDA events.  ``variants_path`` prints, per variant, structures/s
+and windows/s with the CLIs' host stages, K1's launches, and the largest
+difference of the card's embeddings from the port's CPU run on the same
+inputs (and, for the two-step flow, from the fused window TSV).  Before the
 last line it prints the card's name and power limit (as nvidia-smi
 gives them) and one JSON line of per-kernel numbers; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero without
@@ -47,6 +59,7 @@ from __future__ import annotations
 
 import contextlib
 import csv
+import dataclasses
 import io
 import json
 import os
@@ -64,7 +77,7 @@ import torch
 sys.dont_write_bytecode = True
 
 from ginfinity_tpu_torch.models.checkpoint import export_torch_checkpoint, load_checkpoint
-from ginfinity_tpu_torch.models.gine import GINConfig, GINModel, init_params
+from ginfinity_tpu_torch.models.gine import GINConfig, GINModel, get_node_embeddings, init_params
 from ginfinity_tpu_torch.ops import _build
 from ginfinity_tpu_torch.ops.dp import (
     dp_kernel_ok,
@@ -92,11 +105,19 @@ from ginfinity_tpu_torch.parallel.search import (
     brute_force_topk,
     recall_at_k,
 )
-from ginfinity_tpu_torch.pipelines import align, align_batch, distances, embed, node_embed
+from ginfinity_tpu_torch.pipelines import (
+    align,
+    align_batch,
+    distances,
+    embed,
+    node_embed,
+    windows,
+)
 from ginfinity_tpu_torch.pipelines.align import cosine_similarity_matrix
 from ginfinity_tpu_torch.pipelines.engine import InferenceEngine, preprocess_structures
 from ginfinity_tpu_torch.pipelines.fast_windows import (
     _chunk_for,
+    _dense_forward_ok,
     _embed_group,
     _pack_group,
     _prep_corpus_groups,
@@ -136,11 +157,24 @@ SEARCH_MODES = (("f32", {}, 1.0), ("f32_host_merge", {"rescore": "host"}, 1.0),
                 ("bf16_storage", {"storage": "bf16"}, 0.99),
                 ("int8_storage", {"storage": "int8"}, 1.0))
 DIST_REL = 1e-5            # all-pairs distances against float64 numpy
+VARIANT_RNAS = 500         # structures of each variant's graph mode
+VARIANT_WINDOWS = 2_000    # windows of each variant's window mode
+VARIANT_SAMPLE = 16        # structures of a variant re-embedded on the CPU
+NODE_RNAS = 32             # structures of the forgi node-embedding run
 
 FLAGSHIP = dict(hidden_dim=128, output_dim=128, gin_layers=6,
                 pooling_type="global_mean_pool", node_embed_norm="zscore_l2",
                 norm_type="graph", use_residual=True,
                 normalize_nodes_before_pool=True)
+
+# the variants of the flagship: (name, the change to FLAGSHIP)
+VARIANTS = (
+    ("forgi", {"graph_encoding": "forgi"}),
+    ("layer_norm", {"norm_type": "layer"}),
+    ("instance_norm", {"norm_type": "instance"}),
+    ("batch_norm", {"norm_type": "batch"}),
+    ("set2set", {"pooling_type": "set2set"}),
+)
 
 # one long stem: the windows over its opening strand have every slot
 # pulled (2L = 240 active rows), more than shared memory holds
@@ -467,6 +501,7 @@ def graph_embed_split(src: str, ckpt: str, out_tsv: str, dev) -> dict:
     eng = InferenceEngine.from_checkpoint(ckpt, device=dev)
     t2 = time.perf_counter()
     graphs = preprocess_structures(table.column("secondary_structure"),
+                                   graph_encoding=eng.config.graph_encoding,
                                    feature_dim=eng.config.node_feature_dim).graphs
     t3 = time.perf_counter()
     batch_s, parts, order = 0.0, [], []
@@ -577,11 +612,7 @@ def graph_path(tmp: str, cfg, dev) -> dict:
     params, state = seeded_model(cfg, SEED + 5)
     ckpt = os.path.join(tmp, "flagship.pth")
     export_torch_checkpoint(ckpt, cfg, params, state)
-    src = os.path.join(tmp, "structures.csv")
-    with open(src, "w", newline="") as f:
-        w = csv.writer(f)
-        w.writerow(["rid", "secondary_structure"])
-        w.writerows((f"rna{i}", s) for i, s in enumerate(rnas))
+    src = write_csv(os.path.join(tmp, "structures.csv"), "rid", rnas)
     out = os.path.join(tmp, "graphs.tsv")
     rec = dict(structures=GRAPH_RNAS, nodes=sum(len(s) for s in rnas))
 
@@ -684,6 +715,188 @@ def graph_path(tmp: str, cfg, dev) -> dict:
     return rec
 
 
+def variant_model(cfg: GINConfig, seed: int):
+    """``seeded_model``, with norm affines away from 1 and 0 and batch-norm
+    running statistics away from 0 and 1."""
+    params, state = seeded_model(cfg, seed)
+    g = torch.Generator().manual_seed(seed + 1)
+    params["norms"] = [{k: v + 0.2 * torch.randn(v.shape, generator=g) for k, v in n.items()}
+                       for n in params["norms"]]
+    for bn in state.get("batch_norms", []):
+        bn["running_mean"] = 0.3 * torch.randn(bn["running_mean"].shape, generator=g)
+        bn["running_var"] = 0.5 + torch.rand(bn["running_var"].shape, generator=g)
+    return params, state
+
+
+def write_csv(path: str, id_col: str, structures) -> str:
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow([id_col, "secondary_structure"])
+        w.writerows((f"rna{i}", s) for i, s in enumerate(structures))
+    return path
+
+
+def read_vectors(path: str, key: str) -> dict:
+    """``key`` -> embedding of each row of an embedding TSV."""
+    with open(path, newline="") as f:
+        return {r[key]: np.array(r["embedding_vector"].split(","), np.float32)
+                for r in csv.DictReader(f, delimiter="\t")}
+
+
+def quiet_main(fn, argv) -> float:
+    """Seconds of one CLI run, its prints held back, the card drained."""
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        fn(argv)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def batch_as(batch, dtype):
+    """``batch`` with its float tensors in ``dtype``."""
+    return dataclasses.replace(batch, **{k: getattr(batch, k).to(dtype) for k in (
+        "node_feat", "node_mask", "base_mask", "edge_attr", "edge_mask")})
+
+
+def check_err(what: str, err: float, tol: float = TOL) -> float:
+    if not err <= tol:
+        raise AssertionError(f"{what}: max abs {err} > {tol}")
+    return err
+
+
+def forgi_extras(tmp: str, ckpt: str, cfg, rnas, win_csv: str, fused: dict, dev) -> dict:
+    """The forgi flagship's node embeddings (base rows only) and the
+    two-step window flow, both against the port's own references."""
+    rec = {}
+    src = write_csv(os.path.join(tmp, "nodes_in.csv"), "rid", rnas[:NODE_RNAS])
+    nodes = os.path.join(tmp, "forgi_nodes.tsv")
+    rec["node_embed_seconds"] = quiet_main(node_embed.main, [
+        "--input", src, "--id-column", "rid", "--output", nodes, "--model-path", ckpt,
+        "--quiet", "--device", str(dev)])
+    with open(nodes, newline="") as f:
+        mats = [node_embed.parse_matrix(r["node_embeddings"])
+                for r in csv.DictReader(f, delimiter="\t")]
+    if [m.shape for m in mats] != [(len(s), cfg.hidden_dims[-1]) for s in rnas[:NODE_RNAS]]:
+        raise AssertionError("forgi node embeddings: not one row per base")
+    # unit rows of a 6-layer GraphNorm stack, not averaged by a pool: the
+    # float32 order of the CPU and of the card differ by more than 1e-4,
+    # so a float64 run on the CPU breaks the tie (as the CPU tests do)
+    graphs = preprocess_structures(rnas[:4], graph_encoding="forgi",
+                                   feature_dim=cfg.node_feature_dim).graphs
+    batch = batch_graphs(graphs)
+    base = batch.base_mask.numpy() > 0
+    got = np.concatenate(mats[:4])
+    _, params, state, _ = load_checkpoint(ckpt)
+    ref = {}
+    for dt in (torch.float32, torch.float64):
+        m = GINModel(cfg, params, state).to(dt)
+        ref[dt] = get_node_embeddings(cfg, m.params, m.state, batch_as(batch, dt)).numpy()[base]
+    r32, r64 = ref[torch.float32], ref[torch.float64]
+    rec.update(node_max_abs_err_vs_cpu=float(np.abs(got - r32).max()),
+               node_card_vs_float64=float(np.abs(got - r64).max()),
+               node_cpu_vs_float64=float(np.abs(r32 - r64).max()))
+    if not (rec["node_max_abs_err_vs_cpu"] <= TOL or
+            rec["node_card_vs_float64"] <= 2 * rec["node_cpu_vs_float64"] + 1e-6):
+        raise AssertionError(f"forgi node embeddings: {rec['node_card_vs_float64']} from "
+                             f"float64 on the card, {rec['node_cpu_vs_float64']} on the CPU")
+
+    wdir = os.path.join(tmp, "windows")
+    t0 = time.perf_counter()
+    windows.main(["--input", win_csv, "--id-column", "rna_id", "--L", str(WINDOW),
+                  "--keep-paired-neighbors", "--format", "both", "--quiet",
+                  "--output-dir", wdir])
+    rec["windows_cli_seconds"] = time.perf_counter() - t0
+    launches = forward_windows.launches
+    for fmt in ("npz", "pt"):
+        out = os.path.join(tmp, f"two_step_{fmt}.tsv")
+        rec[f"graph_pt_{fmt}_seconds"] = quiet_main(embed.main, [
+            "--graph-pt", os.path.join(wdir, f"windows_graphs.{fmt}"),
+            "--meta-tsv", os.path.join(wdir, "windows_metadata.tsv"), "--id-column", "rna_id",
+            "--model-path", ckpt, "--output", out, "--device", str(dev)])
+        two = read_vectors(out, "window_id")
+        if two.keys() != fused.keys():
+            raise AssertionError(f"two-step flow ({fmt}): other windows than the fused path")
+        rec[f"graph_pt_{fmt}_max_abs_err_vs_fused"] = check_err(
+            f"two-step flow ({fmt}) vs the fused window path",
+            max(float(np.abs(two[k] - fused[k]).max()) for k in fused))
+    if forward_windows.launches != launches:
+        raise AssertionError("embed --graph-pt launched K1")
+    return rec
+
+
+def variants_path(tmp: str, dev) -> dict:
+    """Each variant of the flagship through the embed CLI's graph and window
+    modes; the forgi flagship also through node embeddings and the
+    two-step window flow.  Returns the phase's record."""
+    rng = np.random.default_rng(SEED + 9)
+    rnas = [random_structure(rng, int(rng.integers(150, 351))) for _ in range(VARIANT_RNAS)]
+    structs = corpus(rng, VARIANT_WINDOWS, WINDOW)
+    n_windows = sum(len(s) - WINDOW + 1 for s in structs)
+    graph_csv = write_csv(os.path.join(tmp, "structures.csv"), "rid", rnas)
+    win_csv = write_csv(os.path.join(tmp, "corpus.csv"), "rna_id", structs)
+    take = np.random.default_rng(SEED + 10).choice(VARIANT_RNAS, VARIANT_SAMPLE, replace=False)
+    sub, k = [], 0
+    while sum(len(s) - WINDOW + 1 for s in sub) < 64:
+        sub.append(structs[k])
+        k += 1
+    rec = dict(structures=VARIANT_RNAS, nodes=sum(len(s) for s in rnas),
+               window_structures=len(structs), windows=n_windows)
+    for name, change in VARIANTS:
+        cfg = GINConfig.create(**{**FLAGSHIP, **change})
+        params, state = variant_model(cfg, SEED + 11)
+        ckpt = os.path.join(tmp, f"{name}.pth")
+        export_torch_checkpoint(ckpt, cfg, params, state)
+        v = {"window_route": "K1" if _dense_forward_ok(cfg) else "compact"}
+        forward_windows.launches = dp_wavefront.launches = 0
+
+        out = os.path.join(tmp, f"{name}_graphs.tsv")
+        v["graph_cli_seconds"] = quiet_main(embed.main, [
+            "--input", graph_csv, "--id-column", "rid", "--output", out, "--model-path", ckpt,
+            "--quiet", "--device", str(dev)])
+        v["structures_per_s"] = VARIANT_RNAS / v["graph_cli_seconds"]
+        emb = read_vectors(out, "rid")
+        if list(emb) != [f"rna{i}" for i in range(VARIANT_RNAS)] or not all(
+                e.shape == (cfg.output_dim,) and np.isfinite(e).all() for e in emb.values()):
+            raise AssertionError(f"{name}: graph TSV rows missing, misordered or not finite")
+        cpu = InferenceEngine.from_checkpoint(ckpt, device="cpu").embed_graphs(
+            preprocess_structures([rnas[i] for i in take], graph_encoding=cfg.graph_encoding,
+                                  feature_dim=cfg.node_feature_dim).graphs)
+        v["graph_max_abs_err_vs_cpu"] = check_err(f"{name} graph embeddings vs the CPU", float(
+            np.abs(cpu - np.stack([emb[f"rna{i}"] for i in take])).max()))
+        v["graph_embed_split"] = graph_embed_split(graph_csv, ckpt,
+                                                   os.path.join(tmp, "split.tsv"), dev)
+
+        wout = os.path.join(tmp, f"{name}_windows.tsv")
+        forward_windows.launches = 0
+        v["window_cli_seconds"] = quiet_main(embed.main, [
+            "--input", win_csv, "--id-column", "rna_id", "--output", wout,
+            "--model-path", ckpt, "--window-size", str(WINDOW), "--keep-paired-neighbors",
+            "--quiet", "--device", str(dev)])
+        v["windows_per_s"] = n_windows / v["window_cli_seconds"]
+        v["window_kernel_launches"] = forward_windows.launches
+        if (forward_windows.launches > 0) != (v["window_route"] == "K1"):
+            raise AssertionError(f"{name}: K1 launched {forward_windows.launches} times on "
+                                 f"the {v['window_route']} window route")
+        fused = read_vectors(wout, "window_id")
+        if len(fused) != n_windows or not all(np.isfinite(e).all() for e in fused.values()):
+            raise AssertionError(f"{name}: window TSV has {len(fused)} rows or a value that "
+                                 f"is not finite")
+        model = GINModel(cfg, params, state)
+        res = embed_corpus_windows(model, sub, WINDOW, True, device="cpu")
+        v["window_max_abs_err_vs_cpu"] = check_err(f"{name} window embeddings vs the CPU", max(
+            float(np.abs(fused[f"rna{i}_{st}"] - e).max())
+            for i, (starts, embs) in enumerate(res) for st, e in zip(starts.tolist(), embs)))
+        v["windows_checked"] = sum(len(st) for st, _ in res)
+        v["window_cli_host_split"] = cli_host_split(win_csv, ckpt, os.path.join(tmp, "w.tsv"),
+                                                    structs, WINDOW, dev)
+        if name == "forgi":
+            v.update(forgi_extras(tmp, ckpt, cfg, rnas, win_csv, fused, dev))
+        if dp_wavefront.launches:
+            raise AssertionError(f"{name}: the variants path launched K2")
+        rec[name] = v
+    return rec
+
+
 @contextlib.contextmanager
 def phase(name: str, record: dict):
     t0 = time.perf_counter()
@@ -776,11 +989,7 @@ def main() -> int:
         export_torch_checkpoint(ckpt, cfg, params, state)
         structures = corpus(rng, N_WINDOWS, WINDOW)
         n_windows = sum(len(s) - WINDOW + 1 for s in structures)
-        src = os.path.join(tmp, "corpus.csv")
-        with open(src, "w", newline="") as f:
-            w = csv.writer(f)
-            w.writerow(["rna_id", "secondary_structure"])
-            w.writerows((f"rna{i}", s) for i, s in enumerate(structures))
+        src = write_csv(os.path.join(tmp, "corpus.csv"), "rna_id", structures)
         out = os.path.join(tmp, "windows.tsv")
 
         forward_windows.launches = dp_wavefront.launches = 0
@@ -795,12 +1004,9 @@ def main() -> int:
             raise AssertionError("the main path launched no window-encoder kernel")
         rec["dp_kernel_launches"] = dp_wavefront.launches
 
-        with open(out, newline="") as f:
-            rows = list(csv.DictReader(f, delimiter="\t"))
-        if len(rows) != n_windows:
-            raise AssertionError(f"TSV has {len(rows)} rows, expected {n_windows}")
-        emb = {r["window_id"]: np.array(r["embedding_vector"].split(","), np.float32)
-               for r in rows}
+        emb = read_vectors(out, "window_id")
+        if len(emb) != n_windows:
+            raise AssertionError(f"TSV has {len(emb)} rows, expected {n_windows}")
         if any(v.shape != (cfg.output_dim,) or not np.isfinite(v).all() for v in emb.values()):
             raise AssertionError("an embedding is not finite or not 128 wide")
 
@@ -849,11 +1055,7 @@ def main() -> int:
         params, state = seeded_model(cfg, SEED + 4)
         ckpt = os.path.join(tmp, "flagship.pth")
         export_torch_checkpoint(ckpt, cfg, params, state)
-        src = os.path.join(tmp, "structures.csv")
-        with open(src, "w", newline="") as f:
-            w = csv.writer(f)
-            w.writerow(["rid", "secondary_structure"])
-            w.writerows((f"rna{i}", s) for i, s in enumerate(rnas))
+        src = write_csv(os.path.join(tmp, "structures.csv"), "rid", rnas)
         nodes = os.path.join(tmp, "nodes.tsv")
         out_dir = os.path.join(tmp, "pairs")
         n_pairs = ALIGN_RNAS * (ALIGN_RNAS - 1) // 2
@@ -958,6 +1160,9 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory() as tmp, phase("graph_path", {"card": card}) as rec:
         rec.update(graph_path(tmp, cfg, dev))
+
+    with tempfile.TemporaryDirectory() as tmp, phase("variants_path", {"card": card}) as rec:
+        rec.update(variants_path(tmp, dev))
 
     with phase("kernel_timing", {"card": card}) as rec:
         p, s = model.params, model.state

@@ -3,13 +3,15 @@
 Port of ``ginfinity_tpu/graphs/build.py``: the standard encoding's
 :class:`GraphArrays` (node features, both-ways directed edges with
 ``[adjacent, base_pair, is_forward, is_backward]`` attributes), the
-window node features and the constant window edge rows.  The forgi
-encoding is not ported yet (ROADMAP queue 1, item 1).
+window node features and the constant window edge rows, and the forgi
+encoding (:func:`build_forgi`): the bases plus one meta-node per
+structural element (``graphs/forgi_elements.py``).
 
 Standard node features are ``[w*paired, w*unpaired, loop_size_norm,
 loop_pos_norm]`` (+ a ``seq_weight``-scaled ACGU one-hot when
-``seq_weight > 0``), ``w = 1 - seq_weight``.  Forgi models place the
-same block in their 16-wide layout ``[4 struct, 4 seq, is_base, 7 type]``.
+``seq_weight > 0``), ``w = 1 - seq_weight``.  Forgi nodes are 16 wide,
+``[4 struct, 4 seq, is_base, 7-way element type]``, and forgi edges 7
+wide, ``[adj, bp, meta->base, base->meta, meta<->meta, fwd, bwd]``.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import dataclasses
 import numpy as np
 
 from ginfinity_tpu_torch.graphs.dotbracket import loop_features, one_hot_sequence, pair_table
+from ginfinity_tpu_torch.graphs.forgi_elements import decompose_elements, element_connections
 
 FORGI_NODE_TYPES = (
     "five_prime",
@@ -29,6 +32,8 @@ FORGI_NODE_TYPES = (
     "three_prime",
     "other",
 )
+FORGI_TYPE_TO_INDEX = {name: idx for idx, name in enumerate(FORGI_NODE_TYPES)}
+FORGI_EDGE_DIM = 7
 
 
 @dataclasses.dataclass
@@ -61,6 +66,15 @@ def _directed_both_ways(src: np.ndarray, dst: np.ndarray,
     return s, d, np.concatenate([a, fwd, 1.0 - fwd], axis=1)
 
 
+def _fit_width(feat: np.ndarray, feature_dim: int | None) -> np.ndarray:
+    """Truncate or zero-pad node features to ``feature_dim`` columns."""
+    if feature_dim is None or feature_dim == feat.shape[1]:
+        return feat
+    if feature_dim < feat.shape[1]:
+        return feat[:, :feature_dim]
+    return np.pad(feat, ((0, 0), (0, feature_dim - feat.shape[1])))
+
+
 def standard_node_features(
     pt: np.ndarray,
     sequence: str | None,
@@ -77,12 +91,7 @@ def standard_node_features(
     feat = np.stack(cols, axis=1).astype(np.float32)
     if seq_weight > 0:
         feat = np.concatenate([feat, seq_weight * one_hot_sequence(sequence, n)], axis=1)
-    if feature_dim is not None and feature_dim != feat.shape[1]:
-        if feature_dim < feat.shape[1]:
-            feat = feat[:, :feature_dim]
-        else:
-            feat = np.pad(feat, ((0, 0), (0, feature_dim - feat.shape[1])))
-    return feat
+    return _fit_width(feat, feature_dim)
 
 
 def window_node_features(
@@ -168,6 +177,70 @@ def build_standard(
     )
 
 
+def _meta_edges(src: list, dst: list, col: list) -> np.ndarray:
+    """7-wide attributes of meta edges: a one-hot class column, then
+    ``[is_forward, is_backward]``."""
+    attr = np.zeros((len(src), FORGI_EDGE_DIM), np.float32)
+    attr[np.arange(len(src)), col] = 1.0
+    fwd = (np.asarray(src) < np.asarray(dst)).astype(np.float32)
+    attr[:, 5] = fwd
+    attr[:, 6] = 1.0 - fwd
+    return attr
+
+
+def build_forgi(
+    structure: str,
+    sequence: str | None = None,
+    seq_weight: float = 0.0,
+    feature_dim: int | None = None,
+) -> GraphArrays:
+    """Forgi encoding: the ``n`` bases first, then one meta-node per
+    structural element.  Edges, in order: the standard base-level edges
+    widened to 7 columns; for each element and each member base, meta ->
+    base (column 2) then base -> meta (column 3); for each connected
+    element pair ``(a, b)``, a -> b then b -> a (column 4)."""
+    pt = pair_table(structure)
+    n = pt.shape[0]
+    elements = decompose_elements(pt)
+
+    paired = (pt >= 0).astype(np.float32)
+    loop_size_norm, loop_pos_norm = loop_features(pt)
+    w = 1.0 - seq_weight
+    total = n + len(elements)
+    feat = np.zeros((total, 4 + 4 + 1 + len(FORGI_NODE_TYPES)), np.float32)
+    feat[:n, 0:4] = np.stack([w * paired, w * (1.0 - paired), loop_size_norm, loop_pos_norm],
+                             axis=1)
+    if seq_weight > 0:
+        feat[:n, 4:8] = seq_weight * one_hot_sequence(sequence, n)
+    feat[:n, 8] = 1.0  # is_base
+    for k, el in enumerate(elements):
+        feat[n + k, 9 + FORGI_TYPE_TO_INDEX.get(el.kind, FORGI_TYPE_TO_INDEX["other"])] = 1.0
+
+    src_b, dst_b, attr_b4 = _standard_edges(pt)
+    attr_b = np.zeros((src_b.shape[0], FORGI_EDGE_DIM), np.float32)
+    attr_b[:, 0:2] = attr_b4[:, 0:2]
+    attr_b[:, 5:7] = attr_b4[:, 2:4]
+
+    src, dst, col = [], [], []
+    for k, el in enumerate(elements):
+        for member in el.members:
+            src += [n + k, member]
+            dst += [member, n + k]
+            col += [2, 3]
+    for a, b in element_connections(elements):
+        src += [n + a, n + b]
+        dst += [n + b, n + a]
+        col += [4, 4]
+    return GraphArrays(
+        node_feat=_fit_width(feat, feature_dim),
+        edge_src=np.concatenate([src_b, np.asarray(src, np.int32)]).astype(np.int32),
+        edge_dst=np.concatenate([dst_b, np.asarray(dst, np.int32)]).astype(np.int32),
+        edge_attr=np.concatenate([attr_b, _meta_edges(src, dst, col)]),
+        n_nodes=total,
+        n_base_nodes=n,
+    )
+
+
 def build_graph_arrays(
     structure: str,
     sequence: str | None = None,
@@ -179,7 +252,5 @@ def build_graph_arrays(
     if encoding == "standard":
         return build_standard(structure, sequence, seq_weight, feature_dim)
     if encoding == "forgi":
-        raise NotImplementedError(
-            "the forgi graph encoding is not ported yet (ROADMAP queue 1, item 1)"
-        )
+        return build_forgi(structure, sequence, seq_weight, feature_dim)
     raise ValueError(f"Unsupported graph_encoding '{graph_encoding}'")

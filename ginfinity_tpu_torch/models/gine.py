@@ -1,15 +1,21 @@
 """GINE encoder configuration, parameters and shared layer helpers.
 
-Port of the parts of ``ginfinity_tpu/models/gine.py`` that the windowed
-embedding path, the node-embedding path and the whole-structure graph
-embedding path use.  Parameters keep the JAX package's tree layout —
-nested dicts with ``[in, out]`` dense kernels — so the fused window
-forward reads like its JAX counterpart and a JAX parameter tree carries
-over key for key (``models/checkpoint.py::params_from_jax``).
+Port of ``ginfinity_tpu/models/gine.py`` in inference mode: every norm
+type (graph, layer, instance, batch with running state, none) and every
+pooling (add, mean, Set2Set).  Parameters keep the JAX package's tree
+layout — nested dicts with ``[in, out]`` dense kernels — so the fused
+window forward reads like its JAX counterpart and a JAX parameter tree
+carries over key for key (``models/checkpoint.py::params_from_jax``).
 
 Layer semantics (PyG parity):
   GINEConv:  ``out = MLP((1 + eps) * x + sum_{j->i} relu(x_j + W_e e_ji + b_e))``
   GraphNorm: ``y = w * (x - a * mean_g) / sqrt(var_g(x - a * mean_g) + 1e-5) + b``
+  LayerNorm (graph mode): one mean and variance per graph over all its
+  ``nodes x features`` entries, then the affine.
+  InstanceNorm: per-graph, per-feature statistics, no affine.
+  BatchNorm: the checkpoint's ``running_mean``/``running_var``.
+  Set2Set: two steps of a torch-layout LSTM (gates i, f, g, o) with
+  attention over each graph's nodes.
   node_embed_norm 'zscore_l2': z-score with the ``node_mu``/``node_sigma``
   buffers, then row L2.
 """
@@ -29,7 +35,8 @@ from ginfinity_tpu_torch.graphs.build import FORGI_NODE_TYPES
 Params = dict
 State = dict
 
-_NORM_EPS = 1e-5  # PyG GraphNorm eps
+_NORM_EPS = 1e-5  # PyG GraphNorm/LayerNorm/InstanceNorm/BatchNorm eps
+_SET2SET_STEPS = 2  # processing steps of the reference's Set2Set
 
 
 @dataclasses.dataclass(frozen=True)
@@ -156,6 +163,22 @@ def _init_linear(generator: torch.Generator, fan_in: int, fan_out: int) -> dict:
     return {"kernel": uniform((fan_in, fan_out), w_limit), "bias": uniform((fan_out,), limit)}
 
 
+def _init_lstm(generator: torch.Generator, input_size: int, hidden_size: int) -> dict:
+    """torch's LSTM init, uniform in +-1/sqrt(hidden), torch layout:
+    ``w_ih [4H, in]``, ``w_hh [4H, H]``, gates i, f, g, o."""
+    limit = math.sqrt(1.0 / hidden_size)
+
+    def uniform(shape):
+        return (2.0 * torch.rand(shape, generator=generator) - 1.0) * limit
+
+    return {
+        "w_ih": uniform((4 * hidden_size, input_size)),
+        "w_hh": uniform((4 * hidden_size, hidden_size)),
+        "b_ih": uniform((4 * hidden_size,)),
+        "b_hh": uniform((4 * hidden_size,)),
+    }
+
+
 def init_params(generator: torch.Generator, config: GINConfig) -> tuple[Params, State]:
     """Random parameters on the CPU from ``generator``, with the same
     distributions as the JAX package's ``init_params`` (the draws differ:
@@ -185,13 +208,18 @@ def init_params(generator: torch.Generator, config: GINConfig) -> tuple[Params, 
             norms.append({})
     params["convs"] = convs
     params["norms"] = norms
-    if config.pooling_type == "set2set":
-        raise NotImplementedError(
-            "set2set pooling is not ported yet (ROADMAP queue 1, item 2)"
-        )
-    params["fc"] = _init_linear(generator, config.hidden_dims[-1], config.output_dim)
     last = config.hidden_dims[-1]
+    if config.pooling_type == "set2set":
+        params["set2set"] = _init_lstm(generator, 2 * last, last)
+        params["fc"] = _init_linear(generator, 2 * last, config.output_dim)
+    else:
+        params["fc"] = _init_linear(generator, last, config.output_dim)
     state: State = {"node_mu": torch.zeros(last), "node_sigma": torch.ones(last)}
+    if config.norm_type == "batch":
+        state["batch_norms"] = [
+            {"running_mean": torch.zeros(d), "running_var": torch.ones(d)}
+            for d in config.hidden_dims
+        ]
     return params, state
 
 
@@ -239,20 +267,42 @@ def _graph_norm(x: torch.Tensor, p: dict, batch: GraphBatch) -> torch.Tensor:
     return p["weight"] * out / std[batch.node_graph] + p["bias"]
 
 
+def _layer_norm_graph(x: torch.Tensor, p: dict, batch: GraphBatch) -> torch.Tensor:
+    """PyG ``LayerNorm(mode='graph')``: the statistics of a graph run over
+    all its ``nodes x features`` entries."""
+    g1 = batch.num_graphs + 1
+    counts = torch.clamp(_graph_counts(batch) * x.shape[1], min=1.0)
+    mean = _segment_sum(x.sum(dim=1) * batch.node_mask, batch.node_graph, g1) / counts
+    xc = x - mean[batch.node_graph][:, None]
+    var = _segment_sum((xc * xc).sum(dim=1) * batch.node_mask, batch.node_graph, g1) / counts
+    out = xc / torch.sqrt(var + _NORM_EPS)[batch.node_graph][:, None]
+    return out * p["weight"] + p["bias"]
+
+
+def _instance_norm(x: torch.Tensor, batch: GraphBatch) -> torch.Tensor:
+    """PyG ``InstanceNorm`` (no affine): per-graph, per-feature statistics."""
+    counts = _graph_counts(batch)
+    xc = x - _segment_mean(x, batch, counts)[batch.node_graph]
+    var = _segment_mean(xc * xc, batch, counts)
+    return xc / torch.sqrt(var[batch.node_graph] + _NORM_EPS)
+
+
+def _batch_norm(x: torch.Tensor, p: dict, bn_state: dict) -> torch.Tensor:
+    """``BatchNorm`` in eval: the running statistics, then the affine."""
+    out = (x - bn_state["running_mean"]) / torch.sqrt(bn_state["running_var"] + _NORM_EPS)
+    return out * p["weight"] + p["bias"]
+
+
 def encode_nodes(config: GINConfig, params: Params, state: State, batch: GraphBatch,
                  *, train: bool = False) -> torch.Tensor:
     """The GINE stack in inference mode; raw node embeddings [N_pad, D].
 
     Each layer: ``msg = relu(x[src] + edge_lin(attr)) * edge_mask``
     summed into ``dst``; ``h = (1 + eps) x + agg``; a 2-layer ReLU MLP;
-    GraphNorm (or none); the residual when the widths match."""
+    the layer's norm; the residual when the widths match."""
     if train:
         raise NotImplementedError(
-            "training mode and dropout are not ported yet (ROADMAP queue 1, item 2)"
-        )
-    if config.norm_type not in ("graph", "none"):
-        raise NotImplementedError(
-            f"norm_type {config.norm_type!r} is not ported yet (ROADMAP queue 1, item 2)"
+            "training mode and dropout are not ported yet (ROADMAP queue 1, item 10)"
         )
     x = _dense(batch.node_feat, params["node_encoder"])
     for i in range(config.gin_layers):
@@ -264,8 +314,15 @@ def encode_nodes(config: GINConfig, params: Params, state: State, batch: GraphBa
         h = (1.0 + conv["eps"]) * x + agg
         h = torch.relu(_dense(h, conv["mlp0"]))
         h = torch.relu(_dense(h, conv["mlp1"]))
-        if config.norm_type == "graph":
+        norm = config.norm_type
+        if norm == "graph":
             h = _graph_norm(h, params["norms"][i], batch)
+        elif norm == "layer":
+            h = _layer_norm_graph(h, params["norms"][i], batch)
+        elif norm == "instance":
+            h = _instance_norm(h, batch)
+        elif norm == "batch":
+            h = _batch_norm(h, params["norms"][i], state["batch_norms"][i])
         if config.use_residual and h_in.shape == h.shape:
             h = h + h_in
         x = h
@@ -282,18 +339,48 @@ def get_node_embeddings(config: GINConfig, params: Params, state: State,
     return x
 
 
+def _set2set(params: Params, x: torch.Tensor, batch: GraphBatch) -> torch.Tensor:
+    """Set2Set pooling ``[G+1, 2D]``: the LSTM's two steps written out in
+    torch's layout (gates i, f, g, o).  Masked nodes score the float32
+    minimum, not -inf, so a graph without real nodes (the trash segment,
+    a padding slot) reads 0 and not NaN."""
+    p = params["set2set"]
+    g1 = batch.num_graphs + 1
+    d = x.shape[1]
+    seg = batch.node_graph.long()
+    real = batch.node_mask > 0
+    q_star = x.new_zeros((g1, 2 * d))
+    h = x.new_zeros((g1, d))
+    c = x.new_zeros((g1, d))
+    neg_inf = torch.finfo(x.dtype).min
+    for _ in range(_SET2SET_STEPS):
+        gates = q_star @ p["w_ih"].T + p["b_ih"] + h @ p["w_hh"].T + p["b_hh"]
+        gi, gf, gg, go = gates.chunk(4, dim=1)
+        c = torch.sigmoid(gf) * c + torch.sigmoid(gi) * torch.tanh(gg)
+        h = torch.sigmoid(go) * torch.tanh(c)
+        e = torch.where(real, (x * h[seg]).sum(dim=1), neg_inf)
+        emax = torch.full((g1,), neg_inf, dtype=x.dtype, device=x.device).scatter_reduce(
+            0, seg, e, "amax", include_self=False)
+        a = torch.exp(e - emax[seg]) * batch.node_mask
+        asum = _segment_sum(a, batch.node_graph, g1)
+        a = a / torch.clamp(asum[seg], min=1e-16)
+        r = _segment_sum(a[:, None] * x, batch.node_graph, g1)
+        q_star = torch.cat([h, r], dim=1)
+    return q_star
+
+
 def pool_and_project(config: GINConfig, params: Params, x: torch.Tensor,
                      batch: GraphBatch) -> torch.Tensor:
     """Graph pooling over real nodes, then ``fc``; ``[G, output_dim]``
     with the trash segment dropped.  Mean pooling divides by the real
     node count, at least 1."""
     if config.pooling_type == "set2set":
-        raise NotImplementedError(
-            "set2set pooling is not ported yet (ROADMAP queue 1, item 2)"
-        )
-    pooled = _segment_sum(x * batch.node_mask[:, None], batch.node_graph, batch.num_graphs + 1)
-    if config.pooling_type == "global_mean_pool":
-        pooled = pooled / torch.clamp(_graph_counts(batch), min=1.0)[:, None]
+        pooled = _set2set(params, x, batch)
+    else:
+        pooled = _segment_sum(x * batch.node_mask[:, None], batch.node_graph,
+                              batch.num_graphs + 1)
+        if config.pooling_type == "global_mean_pool":
+            pooled = pooled / torch.clamp(_graph_counts(batch), min=1.0)[:, None]
     return _dense(pooled, params["fc"])[: batch.num_graphs]
 
 
@@ -320,55 +407,56 @@ def listify(node):
     return {k: listify(v) for k, v in node.items()}
 
 
+def _leaves(path: tuple, tree):
+    """``(path, tensor)`` of every leaf of a nested dict/list tree."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(path + (k,), v)
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaves(path + (str(i),), v)
+    else:
+        yield path, tree
+
+
 class GINModel(nn.Module):
-    """A config with its parameters and ``node_mu``/``node_sigma`` state.
+    """A config with its parameters and state (``node_mu``/``node_sigma``,
+    and each layer's batch-norm running statistics).
 
     The tensors are registered on the module (so ``.to(device)`` moves
-    them); :attr:`params` and :attr:`state` give them back in the JAX
-    package's tree layout, which the forward functions read.
+    them): parameters, among them Set2Set's LSTM, as frozen
+    ``nn.Parameter``s and the state as buffers.  :attr:`params` and
+    :attr:`state` give them back in the JAX package's tree layout, which
+    the forward functions read.
     """
 
     def __init__(self, config: GINConfig, params: Params, state: State):
         super().__init__()
-        extra = set(state) - {"node_mu", "node_sigma"}
-        if extra or "set2set" in params:
-            raise NotImplementedError(
-                "batch-norm state and set2set pooling are not ported yet "
-                "(ROADMAP queue 1, item 2)"
-            )
         self.config = config
-        self._keys: list[tuple[str, ...]] = []
-        as_t = lambda v: torch.as_tensor(v, dtype=torch.float32)
-
-        def register(path, tree):
-            if isinstance(tree, dict):
-                for k, v in tree.items():
-                    register(path + (k,), v)
-            elif isinstance(tree, (list, tuple)):
-                for i, v in enumerate(tree):
-                    register(path + (str(i),), v)
-            else:
-                self.register_parameter(
-                    "__".join(path), nn.Parameter(as_t(tree).clone(), requires_grad=False)
-                )
-                self._keys.append(path)
-
+        as_t = lambda v: torch.as_tensor(v, dtype=torch.float32).clone()
+        self._keys = []
+        for path, leaf in _leaves((), params):
+            self.register_parameter("__".join(path), nn.Parameter(as_t(leaf), requires_grad=False))
+            self._keys.append(path)
+        self._state_keys = []
+        for path, leaf in _leaves((), state):
+            self.register_buffer("__".join(path), as_t(leaf))
+            self._state_keys.append(path)
         self._n_layers = config.gin_layers
-        register((), params)
-        self.register_buffer("node_mu", as_t(state["node_mu"]).clone())
-        self.register_buffer("node_sigma", as_t(state["node_sigma"]).clone())
         self._packed: dict = {}
 
-    @property
-    def params(self) -> Params:
+    def _tree(self, keys) -> dict:
         tree: dict = {}
-        for path in self._keys:
+        for path in keys:
             node = tree
             for p in path[:-1]:
                 node = node.setdefault(p, {})
             node[path[-1]] = getattr(self, "__".join(path)).detach()
+        return listify(tree)
 
-        out = listify(tree)
+    @property
+    def params(self) -> Params:
+        out = self._tree(self._keys)
         # layers without norm parameters (norm_type 'none') hold no tensors
         norms = out.get("norms", [])
         out["norms"] = norms + [{}] * (self._n_layers - len(norms))
@@ -376,7 +464,7 @@ class GINModel(nn.Module):
 
     @property
     def state(self) -> State:
-        return {"node_mu": self.node_mu, "node_sigma": self.node_sigma}
+        return self._tree(self._state_keys)
 
     @property
     def device(self) -> torch.device:

@@ -2,16 +2,19 @@
 
 Port of ``ginfinity_tpu/pipelines/embed.py``: the same flags and
 defaults, the same TSV schema (``embedding_vector`` as comma-joined
-``%.6f`` strings, window columns first).  Two modes run on the GPU, or
-on the CPU with ``--device cpu``: whole-structure graph embeddings (the
-default) and the fused sliding-window mode (``--window-size``).  The
-other modes raise ``NotImplementedError`` naming the ROADMAP item that
-ports them.
+``%.6f`` strings, window columns first).  Three modes run on the GPU,
+or on the CPU with ``--device cpu``: whole-structure graph embeddings
+(the default), the fused sliding-window mode (``--window-size``), and
+precomputed window graphs (``--graph-pt`` with ``--meta-tsv``, the
+output of ``python -m ginfinity_tpu_torch.pipelines.windows``).  The
+options that are not ported raise ``NotImplementedError`` naming the
+ROADMAP item that ports them.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 import numpy as np
@@ -186,6 +189,24 @@ def generate_window_embeddings(
         print(f"Window embeddings saved to {output_path}")
 
 
+def _embed_precomputed(args, device):
+    """``--graph-pt`` mode: one embedding per window graph, in the order of
+    the metadata TSV, written beside each row's metadata."""
+    from ginfinity_tpu_torch.pipelines.engine import InferenceEngine, adapt_graphs_to_model
+    from ginfinity_tpu_torch.pipelines.windows import load_precomputed, write_precomputed
+
+    meta, graphs = load_precomputed(args.graph_pt, args.meta_tsv)
+    log_path = os.path.splitext(args.output)[0] + ".log"
+    open(log_path, "a").close()
+    engine = InferenceEngine.from_checkpoint(args.model_path, device=device,
+                                             max_nodes_per_batch=args.batch_nodes)
+    embeddings = engine.embed_graphs(adapt_graphs_to_model(graphs, engine.config))
+    write_precomputed(args.output, meta, args.id_column, "embedding_vector",
+                      [format_embedding(v) for v in embeddings])
+    log_information(log_path, {"num_embeddings": len(meta.rows)}, "generate_embeddings")
+    print(f"Embeddings saved to {args.output}")
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         description="Generate embeddings from precomputed graphs or raw dot-bracket TSV (PyTorch/CUDA)."
@@ -268,9 +289,8 @@ def main(argv=None):
             print("[generate_embeddings] --data-parallel: single device "
                   "visible; running unsharded")
     if args.graph_pt:
-        raise NotImplementedError(
-            "--graph-pt embedding is not ported yet (ROADMAP queue 1, item 6)"
-        )
+        _embed_precomputed(args, device)
+        return
 
     table, log_path, propagate = setup_and_read_input(args, need_model=True)
     if args.window_size is None:

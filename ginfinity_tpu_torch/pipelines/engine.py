@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from ginfinity_tpu_torch.graphs.batching import batch_graphs, bucket_sizes, plan_batches, _round_capacity
-from ginfinity_tpu_torch.graphs.build import GraphArrays, build_graph_arrays
+from ginfinity_tpu_torch.graphs.build import GraphArrays, _fit_width, build_graph_arrays
 from ginfinity_tpu_torch.graphs.dotbracket import pair_table
 from ginfinity_tpu_torch.models.gine import GINConfig, GINModel
 from ginfinity_tpu_torch.utils.device import disable_tf32, resolve_device
@@ -67,18 +67,9 @@ def preprocess_structures(
 
 def adapt_feature_dim(graphs: Sequence[GraphArrays], feature_dim: int) -> list[GraphArrays]:
     """Truncate or zero-pad node features to a checkpoint's input width."""
-    out = []
-    for g in graphs:
-        f = g.node_feat
-        if f.shape[1] == feature_dim:
-            out.append(g)
-            continue
-        if f.shape[1] > feature_dim:
-            f = f[:, :feature_dim]
-        else:
-            f = np.pad(f, ((0, 0), (0, feature_dim - f.shape[1])))
-        out.append(dataclasses.replace(g, node_feat=np.ascontiguousarray(f)))
-    return out
+    return [g if g.node_feat.shape[1] == feature_dim else dataclasses.replace(
+        g, node_feat=np.ascontiguousarray(_fit_width(g.node_feat, feature_dim)))
+        for g in graphs]
 
 
 def adapt_graphs_to_model(graphs: Sequence[GraphArrays], cfg: GINConfig) -> list[GraphArrays]:

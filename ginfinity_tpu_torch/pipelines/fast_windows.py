@@ -16,6 +16,16 @@ a chunk is :func:`ginfinity_tpu_torch.ops.windows_encoder.forward_windows`
 (the CUDA kernel on the card) for the configs its gate covers, and the
 plain torch encoder for the other dense configs.
 
+Configs outside the dense forward (batch, layer or instance norm,
+Set2Set, edges neither 4 nor 7 wide) take the compact path: each chunk
+of windows becomes one flat batch of window graphs, built on the device
+(:func:`_window_graphs`, the JAX package's ``_window_batch``,
+``_compact`` and ``_flatten_window_chunk`` in one step), with exactly the
+window's nodes and edges and no padding, and runs through the model's
+``forward_once``.  Chunks are cut from exact host counts of each
+window's nodes (:func:`_window_slot_counts`); the JAX package's slot
+caps and their ladder exist only to bound XLA's recompiles.
+
 Structures are grouped by padded length (the capacity ladder), each
 group's arrays stacked into one ``[S, n_cap]`` upload, and the group's
 windows embedded chunk by chunk from flat (structure, start)
@@ -27,10 +37,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ginfinity_tpu_torch.graphs.batching import _round_capacity
+from ginfinity_tpu_torch.graphs.batching import GraphBatch, _round_capacity
 from ginfinity_tpu_torch.graphs.build import window_node_features
 from ginfinity_tpu_torch.graphs.dotbracket import pair_table
-from ginfinity_tpu_torch.models.gine import GINConfig, GINModel, _dense
+from ginfinity_tpu_torch.models.gine import GINConfig, GINModel, _dense, forward_once
 from ginfinity_tpu_torch.ops.windows_encoder import (
     forward_windows,
     forward_windows_reference,
@@ -38,6 +48,10 @@ from ginfinity_tpu_torch.ops.windows_encoder import (
 )
 from ginfinity_tpu_torch.pipelines.windows import window_starts_mask
 from ginfinity_tpu_torch.utils.device import disable_tf32, resolve_device
+
+
+# real nodes per chunk of the compact path
+_COMPACT_CHUNK_NODES = 32768
 
 
 def _chunk_for(w_cap: int) -> int:
@@ -124,6 +138,102 @@ def _forward_windows_aligned(config: GINConfig, params: dict, state: dict,
     return forward_windows_reference(config, params, state, x0, *flags, L)
 
 
+def _window_slot_counts(pt: np.ndarray, L: int, starts: np.ndarray,
+                        keep_paired_neighbors: bool) -> tuple[np.ndarray, np.ndarray]:
+    """Per window of ``starts``, exact: (in-window base pairs, pulled
+    partners), from one O(n) interval-sum sweep on the host."""
+    n = pt.shape[0]
+    ns = n - L + 1
+    i = np.arange(n)
+    up = (pt >= 0) & (np.abs(pt - i) != 1) & (pt > i)
+    ii, jj = i[up], pt[up].astype(np.int64)
+
+    def interval_counts(lo, hi):
+        diff = np.zeros(ns + 1, np.int64)
+        lo, hi = np.maximum(lo, 0), np.minimum(hi, ns - 1)
+        ok = lo <= hi
+        np.add.at(diff, lo[ok], 1)
+        np.add.at(diff, hi[ok] + 1, -1)
+        return np.cumsum(diff[:ns])
+
+    # pair (i, j) wholly in window [s, s+L): s in [j-L+1, i]
+    bp = interval_counts(jj - L + 1, ii)
+    pulled = np.zeros(ns, np.int64)
+    if keep_paired_neighbors and ii.size:
+        # i in the window, j above it: s in [i-L+1, min(i, j-L)]
+        pulled = interval_counts(ii - L + 1, np.minimum(ii, jj - L))
+        # j in the window, i below it: s in [max(i+1, j-L+1), j]
+        pulled = pulled + interval_counts(np.maximum(ii + 1, jj - L + 1), jj)
+    return bp[starts], pulled[starts]
+
+
+def _both_ways(src, dst, fwd, attr2, edge_dim: int):
+    """Edges ``src -> dst`` with forward flags ``fwd``, then their reverses;
+    attributes ``[attr2, zeros, is_forward, is_backward]``, ``edge_dim``
+    wide."""
+    s = torch.cat([src, dst])
+    d = torch.cat([dst, src])
+    f = torch.cat([fwd, 1.0 - fwd])[:, None]
+    attr = torch.zeros((s.shape[0], edge_dim), dtype=torch.float32, device=src.device)
+    attr[:, :2] = torch.as_tensor(attr2, dtype=torch.float32, device=src.device)
+    attr[:, -2:] = torch.cat([f, 1.0 - f], dim=1)
+    return s, d, attr
+
+
+def _window_graphs(config: GINConfig, feats_all: torch.Tensor, pts_all: torch.Tensor,
+                   si: torch.Tensor, st: torch.Tensor, L: int,
+                   keep_paired_neighbors: bool) -> GraphBatch:
+    """A chunk of ``C`` windows as one flat batch of ``C`` window graphs,
+    built on the device with no padding.  Window ``c``'s positions are
+    nodes ``c*L .. c*L+L-1``; the pulled partners follow all of them, in
+    (window, position) order.  Edges: backbone ``(i, i-1)``, in-window
+    base pairs ``(i, j)`` with ``i < j``, and each pulled pair ``(i,
+    partner slot)``, each followed by its reverse.  Graph pooling and the
+    norms are node-order invariant, so this is the JAX package's
+    ``_window_batch`` up to node order."""
+    dev = feats_all.device
+    C = si.shape[0]
+    pos = torch.arange(L, device=dev)
+    idx = st[:, None] + pos[None, :]                                 # [C, L]
+    partner = pts_all[si[:, None], idx]
+    bp_real = (partner >= 0) & ((partner - idx).abs() != 1)
+    in_win = (partner >= st[:, None]) & (partner < st[:, None] + L)
+    base = (torch.arange(C, device=dev) * L)[:, None] + pos[None, :]  # node of (c, i)
+
+    pc, pi = (bp_real & ~in_win).nonzero(as_tuple=True) if keep_paired_neighbors else \
+        (pos[:0], pos[:0])
+    pulled_node = C * L + torch.arange(pc.shape[0], device=dev)
+    node_feat = torch.cat([feats_all[si[:, None], idx].reshape(C * L, -1),
+                           feats_all[si[pc], partner[pc, pi]]])
+    node_graph = torch.cat([torch.arange(C, device=dev).repeat_interleave(L), pc])
+
+    bb_src = base[:, 1:].reshape(-1)
+    bc, bi = (bp_real & in_win & (partner > idx)).nonzero(as_tuple=True)
+    f32 = torch.float32
+    segs = [
+        _both_ways(bb_src, bb_src - 1, torch.zeros_like(bb_src, dtype=f32), (1.0, 0.0),
+                   config.edge_feature_dim),
+        _both_ways(base[bc, bi], base[bc, partner[bc, bi] - st[bc]],
+                   torch.ones_like(bc, dtype=f32), (0.0, 1.0), config.edge_feature_dim),
+        _both_ways(base[pc, pi], pulled_node, (idx[pc, pi] < partner[pc, pi]).to(f32),
+                   (0.0, 1.0), config.edge_feature_dim),
+    ]
+    edge_src = torch.cat([sg[0] for sg in segs]).to(torch.int32)
+    n_nodes = node_graph.shape[0]
+    return GraphBatch(
+        node_feat=node_feat,
+        node_graph=node_graph.to(torch.int32),
+        node_mask=torch.ones(n_nodes, dtype=f32, device=dev),
+        base_mask=torch.ones(n_nodes, dtype=f32, device=dev),
+        edge_src=edge_src,
+        edge_dst=torch.cat([sg[1] for sg in segs]).to(torch.int32),
+        edge_attr=torch.cat([sg[2] for sg in segs]),
+        edge_mask=torch.ones(edge_src.shape[0], dtype=f32, device=dev),
+        n_nodes=torch.bincount(node_graph, minlength=C).to(torch.int32),
+        num_graphs=C,
+    )
+
+
 def _prep_corpus_groups(cfg: GINConfig, structures, L: int, keep_paired_neighbors: bool,
                         mask_threshold: float, max_programs: int | None = None):
     """Host preprocessing and capacity-ladder grouping.  Returns
@@ -185,6 +295,16 @@ def _pack_group(cfg: GINConfig, per, n_cap: int, idxs, w_multiple: int | None = 
     return feats, pts_p, sidx_p, starts_p, w_cap
 
 
+def _upload_group(cfg: GINConfig, per, n_cap: int, idxs, dev):
+    """One ladder group's stacked arrays and its real window descriptors on
+    ``dev``: ``(feats, pts, si, st, w_cap)``."""
+    feats, pts_p, sidx_p, starts_p, w_cap = _pack_group(cfg, per, n_cap, idxs)
+    n_real = sum(per[i][4].size for i in idxs)
+    return (torch.from_numpy(feats).to(dev), torch.from_numpy(pts_p).to(dev, torch.int64),
+            torch.from_numpy(sidx_p[:n_real]).to(dev, torch.int64),
+            torch.from_numpy(starts_p[:n_real]).to(dev, torch.int64), w_cap)
+
+
 def _embed_group(model: GINModel, per, n_cap: int, idxs, L: int,
                  keep_paired_neighbors: bool, use_kernel: bool | None = None) -> torch.Tensor:
     """Every window of one ladder group, on the model's device:
@@ -192,13 +312,9 @@ def _embed_group(model: GINModel, per, n_cap: int, idxs, L: int,
     real descriptors only; the padding of ``w_cap`` sets the chunk size."""
     cfg = model.config
     dev = model.device
-    feats, pts_p, sidx_p, starts_p, w_cap = _pack_group(cfg, per, n_cap, idxs)
-    n_real = sum(per[i][4].size for i in idxs)
-    feats_d = torch.from_numpy(feats).to(dev)
-    pts_d = torch.from_numpy(pts_p).to(dev, torch.int64)
+    feats_d, pts_d, si, st, w_cap = _upload_group(cfg, per, n_cap, idxs, dev)
+    n_real = si.shape[0]
     views = (feats_d.unfold(1, L, 1), pts_d.unfold(1, L, 1))
-    si = torch.from_numpy(sidx_p[:n_real]).to(dev, torch.int64)
-    st = torch.from_numpy(starts_p[:n_real]).to(dev, torch.int64)
     params, state = model.params, model.state
     kernel = use_kernel if use_kernel is not None else windows_kernel_ok(cfg)
     packed = model.packed_windows() if kernel and dev.type == "cuda" else None
@@ -209,6 +325,28 @@ def _embed_group(model: GINModel, per, n_cap: int, idxs, L: int,
             cfg, params, state, feats_d, pts_d, si[c0:c0 + chunk], st[c0:c0 + chunk],
             L, keep_paired_neighbors, views, kernel, packed,
         )
+    return out
+
+
+def _embed_group_compact(model: GINModel, per, n_cap: int, idxs, L: int,
+                         keep_paired_neighbors: bool) -> torch.Tensor:
+    """The compact path over one ladder group: ``[n_windows, out_dim]`` in
+    descriptor order, chunks of at most about ``_COMPACT_CHUNK_NODES``
+    real nodes."""
+    cfg, dev = model.config, model.device
+    feats_d, pts_d, si, st, _ = _upload_group(cfg, per, n_cap, idxs, dev)
+    nodes = np.concatenate([
+        L + _window_slot_counts(per[i][2], L, per[i][4], keep_paired_neighbors)[1]
+        for i in idxs])
+    n_real = nodes.size
+    cuts = np.flatnonzero(np.diff(np.cumsum(nodes) // _COMPACT_CHUNK_NODES)) + 1
+    bounds = np.concatenate([[0], cuts, [n_real]])
+    params, state = model.params, model.state
+    out = torch.empty((n_real, cfg.output_dim), dtype=torch.float32, device=dev)
+    for c0, c1 in zip(bounds[:-1].tolist(), bounds[1:].tolist()):
+        batch = _window_graphs(cfg, feats_d, pts_d, si[c0:c1], st[c0:c1], L,
+                               keep_paired_neighbors)
+        out[c0:c1] = forward_once(cfg, params, state, batch)
     return out
 
 
@@ -231,11 +369,6 @@ def embed_corpus_windows(model: GINModel, structures, L: int, keep_paired_neighb
             "multi-device window embedding is not ported yet (ROADMAP queue 1, item 11)"
         )
     cfg = model.config
-    if not _dense_forward_ok(cfg):
-        raise NotImplementedError(
-            "the compact window path for configs outside the dense forward "
-            "is not ported yet (ROADMAP queue 1, item 3)"
-        )
     dev = resolve_device(device)
     if dev.type == "cuda":
         disable_tf32()
@@ -246,8 +379,9 @@ def embed_corpus_windows(model: GINModel, structures, L: int, keep_paired_neighb
         cfg, structures, L, keep_paired_neighbors, mask_threshold, max_programs
     )
     results = [empty] * len(structures)
+    embed_group = _embed_group if _dense_forward_ok(cfg) else _embed_group_compact
     for n_cap, idxs in groups.items():
-        emb = _embed_group(model, per, n_cap, idxs, L, keep_paired_neighbors)
+        emb = embed_group(model, per, n_cap, idxs, L, keep_paired_neighbors)
         if wire == "f16":
             emb = emb.to(torch.float16)
         emb_np = emb.cpu().numpy().astype(np.float32, copy=False)
@@ -257,3 +391,13 @@ def embed_corpus_windows(model: GINModel, structures, L: int, keep_paired_neighb
             results[i] = (starts.astype(np.int64), emb_np[off:off + starts.size])
             off += starts.size
     return results
+
+
+def embed_structure_windows(model: GINModel, structure: str, L: int,
+                            keep_paired_neighbors: bool = True, mask_threshold: float = 0.0,
+                            device=None) -> tuple[np.ndarray, np.ndarray]:
+    """All window embeddings of one structure: ``(starts [W] int64,
+    embeddings [W, out_dim] float32)``, empty when the structure is
+    shorter than ``L`` or every window is masked."""
+    return embed_corpus_windows(model, [structure], L, keep_paired_neighbors, mask_threshold,
+                                device=device)[0]

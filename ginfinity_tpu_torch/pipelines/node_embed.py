@@ -4,19 +4,26 @@ Port of ``ginfinity_tpu/pipelines/node_embed.py``: the same flags and
 defaults (``--device`` picks the device: the card unless ``cpu`` is
 asked for), the same TSV.  Column ``node_embeddings`` holds each RNA's
 L x D matrix as compact JSON rounded to 6 decimals; non-base nodes are
-dropped so rows align with base positions.
+dropped so rows align with base positions.  With ``--graph-pt`` and
+``--meta-tsv`` the nodes of precomputed window graphs are embedded, one
+row per window of the metadata TSV.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 
 import numpy as np
 
-from ginfinity_tpu_torch.pipelines.engine import InferenceEngine, preprocess_structures
+from ginfinity_tpu_torch.pipelines.engine import (
+    InferenceEngine,
+    adapt_graphs_to_model,
+    preprocess_structures,
+)
 from ginfinity_tpu_torch.utils.device import resolve_device
 from ginfinity_tpu_torch.utils.io import Table, log_information, setup_and_read_input, write_tsv
 
@@ -116,6 +123,25 @@ def generate_node_embeddings(
         print(f"Node embeddings saved to {output_path}")
 
 
+def _node_embed_precomputed(args, device):
+    """``--graph-pt`` mode: the base nodes' embeddings of each window graph,
+    in the order of the metadata TSV, written beside each row's metadata."""
+    from ginfinity_tpu_torch.pipelines.windows import load_precomputed, write_precomputed
+
+    meta, graphs = load_precomputed(args.graph_pt, args.meta_tsv)
+    log_path = os.path.splitext(args.output)[0] + ".log"
+    open(log_path, "a").close()
+    engine = InferenceEngine.from_checkpoint(args.model_path, device=device,
+                                             max_nodes_per_batch=args.batch_nodes)
+    mats = engine.node_embeddings(adapt_graphs_to_model(graphs, engine.config),
+                                  base_only=True)
+    write_precomputed(args.output, meta, args.id_column, "node_embeddings",
+                      [serialize_matrix(m) for m in mats])
+    log_information(log_path, {"num_node_embeddings": len(meta.rows)},
+                    "generate_node_embeddings")
+    print(f"Node embeddings saved to {args.output}")
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         description="Generate per-node embeddings (L x D JSON matrices) from "
@@ -152,8 +178,8 @@ def main(argv=None):
     if bool(args.graph_pt) != bool(args.meta_tsv):
         sys.exit("ERROR: --graph-pt and --meta-tsv must be given together.")
     if args.graph_pt:
-        sys.exit("ERROR: node embeddings of precomputed window graphs (--graph-pt/"
-                 "--meta-tsv) are not ported yet (ROADMAP queue 1, item 6).")
+        _node_embed_precomputed(args, device)
+        return
 
     table, log_path, propagate = setup_and_read_input(args, need_model=True)
     generate_node_embeddings(

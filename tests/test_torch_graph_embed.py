@@ -158,14 +158,22 @@ def test_forward_once_normalize_override(before_pool):
 
 
 def test_set2set_raises_naming_item_2():
-    with pytest.raises(NotImplementedError, match="item 2"):
-        gine.init_params(torch.Generator().manual_seed(0),
-                         GINConfig.create(**_config("set2set")))
-    _, pm = _models(_config())
-    cfg = dataclasses.replace(pm.config, pooling_type="set2set")
-    _, batch = _batches(STRUCTURES[:2])
-    with pytest.raises(NotImplementedError, match="item 2"):
-        gine.pool_and_project(cfg, pm.params, torch.zeros(batch.num_nodes_padded, 32), batch)
+    """Set2Set, which raised naming ROADMAP item 2 until it was ported:
+    ``init_params`` gives the LSTM and a ``2 x last``-wide ``fc``, and
+    ``pool_and_project`` equals the JAX package's on the same node states
+    (padding nodes and graph slots included)."""
+    params, _ = gine.init_params(torch.Generator().manual_seed(0),
+                                 GINConfig.create(**_config("set2set")))
+    assert params["set2set"]["w_ih"].shape == (128, 64)
+    assert params["fc"]["kernel"].shape == (64, 32)
+    jm, pm = _models(_config("set2set"))
+    jbatch, batch = _batches(STRUCTURES)
+    x = np.array(jm.get_node_embeddings(jbatch))
+    ref = np.asarray(jgine.pool_and_project(jm.config, jm.params, jnp.asarray(x), jbatch))
+    got = gine.pool_and_project(pm.config, pm.params, torch.from_numpy(x), batch).numpy()
+    x64 = gine.pool_and_project(pm.config, _float64(pm.params), torch.from_numpy(x).double(),
+                                _batch64(batch)).numpy()
+    _hold(got, ref, x64)
 
 
 @pytest.mark.parametrize("batch_nodes", [8192, 150, 40])
@@ -250,7 +258,7 @@ def _float64_cli(model_path, src, ids, extra):
     graphs = engine.preprocess_structures(
         [by_id[i]["secondary_structure"] for i in ids],
         [by_id[i]["sequence"] for i in ids], seq_weight=min(1.0, max(0.0, seq_w)),
-        feature_dim=cfg.node_feature_dim).graphs
+        graph_encoding=cfg.graph_encoding, feature_dim=cfg.node_feature_dim).graphs
     batch = batching.batch_graphs(graphs)
     model = GINModel(cfg, params, state)
     return gine.forward_once(cfg, _float64(model.params), _float64(model.state),
@@ -318,8 +326,14 @@ def test_cli_header_only_when_nothing_is_valid(cli_inputs, tmp_path):
 
 
 def test_cli_forgi_raises_naming_item_1(cli_inputs, tmp_path):
-    _, src, model = cli_inputs
-    with pytest.raises(NotImplementedError, match="item 1"):
-        embed.main(["--input", src, "--id-column", "rid", "--model-path", model, "--quiet",
-                    "--graph-encoding", "forgi", "--output", str(tmp_path / "o.tsv"),
-                    "--device", "cpu"])
+    """A forgi checkpoint, which raised naming ROADMAP item 1 until the
+    forgi encoding was ported: its graphs (bases and element meta-nodes)
+    embed as the JAX CLI embeds them, with the encoding taken from the
+    checkpoint or given by ``--graph-encoding``."""
+    _, src, _ = cli_inputs
+    jc, params, state = _jax_model(_config(graph_encoding="forgi"), seed=4)
+    model = str(tmp_path / "forgi.pth")
+    export_torch_checkpoint(model, jc, params, state)
+    for extra in ([], ["--graph-encoding", "forgi"]):
+        ref, got = _run_both(src, model, extra, tmp_path)
+        _check_tsv(ref, got, model, src, extra)

@@ -95,8 +95,12 @@ def test_build_graph_arrays_equal(k, seq_weight, feature_dim):
 
 
 def test_build_unported_and_invalid():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build.build_graph_arrays("((..))", graph_encoding="forgi")
+    """The forgi encoding (ported since) equals the JAX package's; an
+    unknown encoding and an invalid structure still raise."""
+    ref = jbuild.build_graph_arrays("((..))", graph_encoding="forgi")
+    got = build.build_graph_arrays("((..))", graph_encoding="forgi")
+    for a, b in zip(_graph_fields(got), _graph_fields(ref)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
     with pytest.raises(ValueError):
         build.build_graph_arrays("((..))", graph_encoding="bogus")
     with pytest.raises(ValueError):
@@ -204,15 +208,18 @@ def test_graphnorm_parameters_against_float64(name):
 
 
 def test_encode_nodes_unported_modes():
+    """Training mode still raises, naming the ROADMAP item (10) that
+    ports it; layer norm, ported since, runs in inference."""
     from ginfinity_tpu_torch.models.gine import encode_nodes
 
     (_, _, _), model = _models(CONFIGS["norm_none_l2"])
     batch = batching.batch_graphs([build.build_standard("((..))")])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 10"):
         encode_nodes(model.config, model.params, model.state, batch, train=True)
-    cfg = GINConfig.create(hidden_dim=16, output_dim=8, gin_layers=1, norm_type="layer")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        encode_nodes(cfg, model.params, model.state, batch)
+    cfg = GINConfig.create(**{**CONFIGS["norm_none_l2"], "norm_type": "layer"})
+    params = {**model.params, "norms": [{"weight": torch.ones(64), "bias": torch.zeros(64)}] * 2}
+    out = encode_nodes(cfg, params, model.state, batch)
+    assert out.shape == (batch.num_nodes_padded, 64) and torch.isfinite(out).all()
 
 
 @pytest.mark.parametrize("batch_nodes", [8192, 150])
@@ -330,8 +337,9 @@ def test_node_embed_parser_is_flag_superset():
 
 
 @pytest.mark.parametrize("extra, says", [
-    (["--model-path", "m.pth", "--graph-pt", "g.npz", "--meta-tsv", "m.tsv"],
-     "not ported yet (ROADMAP queue 1, item 6)"),
+    # --graph-pt mode (ported since) still needs a checkpoint
+    pytest.param(["--graph-pt", "g.npz", "--meta-tsv", "m.tsv"], "--model-path is required",
+                 id="extra0-not ported yet (ROADMAP queue 1, item 6)"),
     (["--model-path", "m.pth", "--graph-pt", "g.npz"], "must be given together"),
     ([], "--model-path is required"),
 ])
