@@ -30,7 +30,13 @@ GraphNorm, mean pool, zscore_l2):
   compact path, which launches no kernel of the port's own); the forgi
   flagship also through ``ginfinity-generate-node-embeddings`` on 32
   structures and through the two-step flow (the windows CLI, then
-  ``embed --graph-pt`` on its ``.npz`` and its ``.pt``).
+  ``embed --graph-pt`` on its ``.npz`` and its ``.pt``);
+* the bf16 speed mode, ``--precision bf16``: the window path on the same
+  corpus (K1's bf16 route), once alone and once with ``--bf16-check 512``,
+  and once under ``--profile-dir`` (a ``torch.profiler`` trace, from which
+  the card's busy share of the run is read); the graph path's 2,000
+  structures at f32 and bf16 in turns; the layer-norm variant's windows
+  (the compact path) at bf16.
 
 Each phase prints one JSON line with its name and seconds.  The
 ``main_path`` line also splits the warm window pass (upload, window
@@ -47,8 +53,12 @@ embed CLI's host stages and each search's Gram, tile top-k and re-score
 from CUDA events.  ``variants_path`` prints, per variant, structures/s
 and windows/s with the CLIs' host stages, K1's launches, and the largest
 difference of the card's embeddings from the port's CPU run on the same
-inputs (and, for the two-step flow, from the fused window TSV).  Before the
-last line it prints the card's name and power limit (as nvidia-smi
+inputs (and, for the two-step flow, from the fused window TSV).
+``kernel_vs_plain`` also holds K1's bf16 route to the plain version at
+bf16 (the same four rounding points) for each case, and ``bf16_path``
+prints windows/s and structures/s at bf16 with each window's and each
+structure's cosine against the f32 run, the CLI's own ``[bf16-check]``
+numbers and the trace's busy share.  Before the last line it prints the card's name and power limit (as nvidia-smi
 gives them) and one JSON line of per-kernel numbers; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero without
 that line, and so does a machine without a CUDA device.  Imports only
@@ -77,7 +87,13 @@ import torch
 sys.dont_write_bytecode = True
 
 from ginfinity_tpu_torch.models.checkpoint import export_torch_checkpoint, load_checkpoint
-from ginfinity_tpu_torch.models.gine import GINConfig, GINModel, get_node_embeddings, init_params
+from ginfinity_tpu_torch.models.gine import (
+    GINConfig,
+    GINModel,
+    bf16_matmul_route,
+    get_node_embeddings,
+    init_params,
+)
 from ginfinity_tpu_torch.ops import _build
 from ginfinity_tpu_torch.ops.dp import (
     dp_kernel_ok,
@@ -137,6 +153,18 @@ F32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
 # at 495 TFLOP/s (the rate of K1's products, and the counterpart of the TPU
 # kernel's Precision.HIGHEST)
 TF32X3_FLOPS = 495e12 / 3
+BF16_FLOPS = 989e12        # H100 SXM dense bf16 tensor-core rate (K1's bf16 route)
+# K1's bf16 route against its plain version at bf16: a pooled row averages
+# 120-162 rows, and a bf16 rounding flipped by float32 order moves one
+# operand by at most 2^-9 relative; summing the same bf16 operands in
+# float64 instead of float32 moved a CPU run by 2.2e-4 max abs (worst
+# window cosine 0.9999982), so these bars leave about 10x and 5x of room
+BF16_TOL = 2e-3
+BF16_COS = 0.99999
+# bf16 against f32, per window or structure: a mean cosine of 0.99995 was
+# measured on the CPU (min 0.99972); the gate is on the mean
+BF16_MEAN_COS = 0.99
+BF16_CHECK = 512           # --bf16-check sample of the bf16 window run
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate
 SEED = 0
 DEVICE = torch.device("cuda", 0)
@@ -285,10 +313,12 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def encoder_bound_ms(cfg, x0, flags, packed, L: int) -> tuple[float, str, float]:
+def encoder_bound_ms(cfg, x0, flags, packed, L: int,
+                     rate: float = TF32X3_FLOPS) -> tuple[float, str, float]:
     """Least time for the encoder's work on these inputs: the products'
     operations on the active rows (window rows + pulled slots) at the
-    float32-accurate tensor-core rate (3xTF32), against the bytes of every
+    route's tensor-core rate (``rate``: 3xTF32 for the float32-accurate
+    route, BF16_FLOPS for the bf16 route), against the bytes of every
     input read once and the output written once over the memory rate.
     Also the same operations at the FMA units' float32 rate (a second
     figure, not the bound)."""
@@ -300,7 +330,7 @@ def encoder_bound_ms(cfg, x0, flags, packed, L: int) -> tuple[float, str, float]
     ops += 2.0 * x0.shape[0] * cfg.hidden_dims[-1] * cfg.output_dim
     nbytes = sum(t.numel() * t.element_size() for t in (x0, *flags, packed.flat, packed.meta))
     nbytes += x0.shape[0] * cfg.output_dim * 4
-    t_ops, t_bytes = ops / TF32X3_FLOPS, nbytes / HBM_BYTES_PER_S
+    t_ops, t_bytes = ops / rate, nbytes / HBM_BYTES_PER_S
     return (1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"),
             1e3 * max(ops / F32_FLOPS, t_bytes))
 
@@ -478,14 +508,16 @@ def dp_bounds(l1: np.ndarray, l2: np.ndarray) -> tuple[float, str, float]:
 def ptxas_summary(log: str) -> dict:
     """ptxas's registers, stack and spills of every kernel in ``build.log``,
     by kernel; the warp route's instantiations as ``dp_warp_kernel<R,
-    global|local>``."""
+    global|local>``, K1's routes as ``windows_encoder_kernel<3xtf32|bf16>``."""
     out = {}
     for name, props, used in re.findall(
             r"Function properties for (\S+)\n\s*(.*)\nptxas info\s*: (Used .*)", log):
-        m = re.search(r"(\w+_kernel)(?:ILi(\d+)ELb([01])E)?E", name)
+        m = re.search(r"(\w+_kernel)(?:ILi(\d+)ELb([01])E|ILb([01])E)?E", name)
         short = re.sub(r"^.*\d", "", m.group(1)) if m else name
         if m and m.group(2):
             short += f"<{m.group(2)}, {'local' if m.group(3) == '1' else 'global'}>"
+        elif m and m.group(4):
+            short += "<bf16>" if m.group(4) == "1" else "<3xtf32>"
         out[short] = f"{used.strip()}; {props.strip()}"
     return out
 
@@ -824,13 +856,18 @@ def forgi_extras(tmp: str, ckpt: str, cfg, rnas, win_csv: str, fused: dict, dev)
     return rec
 
 
+def variant_corpora() -> tuple[list, list]:
+    """The variants' seeded structures (graph mode) and window corpus."""
+    rng = np.random.default_rng(SEED + 9)
+    rnas = [random_structure(rng, int(rng.integers(150, 351))) for _ in range(VARIANT_RNAS)]
+    return rnas, corpus(rng, VARIANT_WINDOWS, WINDOW)
+
+
 def variants_path(tmp: str, dev) -> dict:
     """Each variant of the flagship through the embed CLI's graph and window
     modes; the forgi flagship also through node embeddings and the
     two-step window flow.  Returns the phase's record."""
-    rng = np.random.default_rng(SEED + 9)
-    rnas = [random_structure(rng, int(rng.integers(150, 351))) for _ in range(VARIANT_RNAS)]
-    structs = corpus(rng, VARIANT_WINDOWS, WINDOW)
+    rnas, structs = variant_corpora()
     n_windows = sum(len(s) - WINDOW + 1 for s in structs)
     graph_csv = write_csv(os.path.join(tmp, "structures.csv"), "rid", rnas)
     win_csv = write_csv(os.path.join(tmp, "corpus.csv"), "rna_id", structs)
@@ -897,6 +934,150 @@ def variants_path(tmp: str, dev) -> dict:
     return rec
 
 
+def row_cosines(a: dict, b: dict) -> np.ndarray:
+    """Cosine of each row of ``a`` against the row of ``b`` with its key."""
+    x = np.stack([a[k] for k in b]).astype(np.float64)
+    y = np.stack(list(b.values())).astype(np.float64)
+    return (x * y).sum(1) / np.maximum(np.linalg.norm(x, axis=1) * np.linalg.norm(y, axis=1),
+                                       1e-30)
+
+
+def cosine_record(what: str, cos: np.ndarray) -> dict:
+    """Mean and min of ``cos``; fails when the mean is below BF16_MEAN_COS."""
+    if not (np.isfinite(cos).all() and cos.mean() >= BF16_MEAN_COS):
+        raise AssertionError(f"{what}: mean cosine {cos.mean()} against f32 < {BF16_MEAN_COS}")
+    return {"cosine_vs_f32_mean": float(cos.mean()), "cosine_vs_f32_min": float(cos.min())}
+
+
+def trace_busy(trace_dir: str) -> dict:
+    """The card's kernel spans in the one trace of ``trace_dir``: their
+    union (ms), the trace's span from its first to its last event (ms),
+    and K1's launches and time in it."""
+    files = [f for f in os.listdir(trace_dir) if f.endswith(".json")]
+    if len(files) != 1:
+        raise AssertionError(f"--profile-dir wrote {files}, not one trace")
+    with open(os.path.join(trace_dir, files[0])) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    kern = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)), e["name"])
+                  for e in events if e.get("cat") == "kernel")
+    busy, end = 0.0, -1.0
+    for a, b, _ in kern:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    k1 = [b - a for a, b, n in kern if "windows_encoder_kernel" in n]
+    if not k1:
+        raise AssertionError("the profiler trace holds no window-encoder kernel")
+    span = max(float(e["ts"]) + float(e.get("dur", 0)) for e in events) - \
+        min(float(e["ts"]) for e in events)
+    return dict(trace_bytes=os.path.getsize(os.path.join(trace_dir, files[0])),
+                kernels=len(kern), kernel_busy_ms=busy / 1e3, trace_span_ms=span / 1e3,
+                k1_kernels=len(k1), k1_ms=sum(k1) / 1e3)
+
+
+def bf16_path(tmp: str, cfg, params, state, structures, f32_emb: dict, dev) -> dict:
+    """The speed mode through the embed CLI: the window cell at ``--precision
+    bf16`` (K1's bf16 route alone: no 3xTF32 launch), again with
+    ``--bf16-check`` and under ``--profile-dir``; the graph cell at f32
+    and bf16 in turns; the layer-norm variant's windows (the compact path,
+    no K1 launch) at f32 and bf16.  Each bf16 result against its f32 run,
+    window by window or structure by structure."""
+    rec = {}
+    ckpt = os.path.join(tmp, "flagship.pth")
+    export_torch_checkpoint(ckpt, cfg, params, state)
+    src = write_csv(os.path.join(tmp, "corpus.csv"), "rna_id", structures)
+    win = ["--input", src, "--id-column", "rna_id", "--model-path", ckpt,
+           "--window-size", str(WINDOW), "--keep-paired-neighbors", "--precision", "bf16",
+           "--device", str(dev)]
+    out = os.path.join(tmp, "bf16.tsv")
+    forward_windows.launches = forward_windows.bf16_launches = dp_wavefront.launches = 0
+    w = rec["windows"] = {"windows": len(f32_emb)}
+    w["cli_seconds"] = quiet_main(embed.main, [*win, "--output", out, "--quiet"])
+    w["cli_windows_per_s"] = len(f32_emb) / w["cli_seconds"]
+    w["bf16_kernel_launches"] = forward_windows.bf16_launches
+    w["tf32x3_kernel_launches"] = forward_windows.launches - forward_windows.bf16_launches
+    if forward_windows.bf16_launches <= 0 or w["tf32x3_kernel_launches"] or \
+            dp_wavefront.launches:
+        raise AssertionError(f"the bf16 window run launched K1's bf16 route "
+                             f"{forward_windows.bf16_launches} times, its 3xTF32 route "
+                             f"{w['tf32x3_kernel_launches']} times and K2 "
+                             f"{dp_wavefront.launches} times")
+    bf = read_vectors(out, "window_id")
+    if bf.keys() != f32_emb.keys() or not all(
+            v.shape == (cfg.output_dim,) and np.isfinite(v).all() for v in bf.values()):
+        raise AssertionError("bf16 window TSV: other windows than the f32 run, or a row "
+                             "that is not finite and 128 wide")
+    w.update(cosine_record("bf16 windows", row_cosines(bf, f32_emb)))
+
+    said = io.StringIO()
+    launches = forward_windows.launches
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(said):
+        embed.main([*win, "--output", os.path.join(tmp, "check.tsv"),
+                    "--bf16-check", str(BF16_CHECK)])
+    torch.cuda.synchronize()
+    m = re.search(r"\[bf16-check\] (\d+) windows re-embedded at f32: cosine mean (\S+), "
+                  r"min ([0-9.e-]+)", said.getvalue())
+    if not m:
+        raise AssertionError(f"no [bf16-check] line in {said.getvalue()[-500:]!r}")
+    w["bf16_check"] = {"cli_seconds": time.perf_counter() - t0, "windows": int(m.group(1)),
+                       "cosine_mean": float(m.group(2).rstrip(",")),
+                       "cosine_min": float(m.group(3)),
+                       "kernel_launches": forward_windows.launches - launches}
+
+    prof = os.path.join(tmp, "profile")
+    w["profiled_cli_seconds"] = quiet_main(embed.main, [
+        *win, "--output", os.path.join(tmp, "prof.tsv"), "--quiet", "--profile-dir", prof])
+    # the profiler adds host time of its own (the trace written at the end
+    # among it), not device work: the busy share is of the unprofiled run
+    t = w["trace"] = trace_busy(prof)
+    t["busy_share_of_cli"] = t["kernel_busy_ms"] / (1e3 * w["cli_seconds"])
+    t["busy_share_of_trace_span"] = t["kernel_busy_ms"] / t["trace_span_ms"]
+
+    # the graph cell, as graph_path builds it, at f32 and bf16 in turns
+    rng = np.random.default_rng(SEED + 5)
+    rnas = [random_structure(rng, int(rng.integers(150, 351))) for _ in range(GRAPH_RNAS)]
+    gckpt = os.path.join(tmp, "graph.pth")
+    export_torch_checkpoint(gckpt, cfg, *seeded_model(cfg, SEED + 5))
+    gsrc = write_csv(os.path.join(tmp, "structures.csv"), "rid", rnas)
+    g = rec["graphs"] = {"structures": GRAPH_RNAS, "seconds": {"f32": [], "bf16": []}}
+    vecs = {}
+    forward_windows.launches = 0
+    for prec in ("f32", "bf16", "bf16", "f32"):
+        gout = os.path.join(tmp, f"graphs_{prec}.tsv")
+        g["seconds"][prec].append(quiet_main(embed.main, [
+            "--input", gsrc, "--id-column", "rid", "--output", gout, "--model-path", gckpt,
+            "--precision", prec, "--quiet", "--device", str(dev)]))
+        vecs[prec] = read_vectors(gout, "rid")
+    g["structures_per_s"] = {k: GRAPH_RNAS * len(v) / sum(v) for k, v in g["seconds"].items()}
+    if list(vecs["bf16"]) != [f"rna{i}" for i in range(GRAPH_RNAS)] or forward_windows.launches:
+        raise AssertionError("bf16 graph TSV: rows missing or misordered, or K1 launched")
+    g.update(cosine_record("bf16 graphs", row_cosines(vecs["bf16"], vecs["f32"])))
+
+    # one compact-path variant (layer norm): no K1 launch at either precision
+    _, structs = variant_corpora()
+    vcfg = GINConfig.create(**{**FLAGSHIP, "norm_type": "layer"})
+    vckpt = os.path.join(tmp, "layer_norm.pth")
+    export_torch_checkpoint(vckpt, vcfg, *variant_model(vcfg, SEED + 11))
+    vsrc = write_csv(os.path.join(tmp, "variant.csv"), "rna_id", structs)
+    c = rec["compact_layer_norm"] = {"windows": sum(len(x) - WINDOW + 1 for x in structs)}
+    vecs = {}
+    for prec in ("f32", "bf16"):
+        vout = os.path.join(tmp, f"variant_{prec}.tsv")
+        c[f"{prec}_cli_seconds"] = quiet_main(embed.main, [
+            "--input", vsrc, "--id-column", "rna_id", "--output", vout, "--model-path", vckpt,
+            "--window-size", str(WINDOW), "--keep-paired-neighbors", "--precision", prec,
+            "--quiet", "--device", str(dev)])
+        vecs[prec] = read_vectors(vout, "window_id")
+    c["bf16_windows_per_s"] = c["windows"] / c["bf16_cli_seconds"]
+    c["kernel_launches"] = forward_windows.launches
+    if forward_windows.launches or len(vecs["bf16"]) != c["windows"]:
+        raise AssertionError(f"compact path at bf16: {forward_windows.launches} K1 launches, "
+                             f"{len(vecs['bf16'])} rows")
+    c.update(cosine_record("bf16 compact windows", row_cosines(vecs["bf16"], vecs["f32"])))
+    rec["bf16_matmul"] = bf16_matmul_route(dev)
+    return rec
+
+
 @contextlib.contextmanager
 def phase(name: str, record: dict):
     t0 = time.perf_counter()
@@ -927,7 +1108,10 @@ def main() -> int:
         rec.update(torch=torch.__version__, cuda=torch.version.cuda,
                    device=torch.cuda.get_device_name(0), card=card,
                    tf32_matmul=torch.backends.cuda.matmul.allow_tf32,
-                   tf32_cudnn=torch.backends.cudnn.allow_tf32)
+                   tf32_cudnn=torch.backends.cudnn.allow_tf32,
+                   bf16_reduced_precision_reduction=(
+                       torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction),
+                   bf16_matmul=bf16_matmul_route(dev))
 
     with phase("build", {}) as rec:
         lib = _build.build_library()
@@ -936,8 +1120,9 @@ def main() -> int:
                    ptxas=ptxas_summary(log),
                    ptxas_notes=[ln.strip() for ln in log.splitlines() if "(C75" in ln])
 
-    errs = []
-    with phase("kernel_vs_plain", {"tolerance": TOL}) as rec:
+    errs, bf16_errs = [], []
+    with phase("kernel_vs_plain", {"tolerance": TOL, "bf16_tolerance": BF16_TOL,
+                                   "bf16_min_cosine": BF16_COS}) as rec:
         structs = corpus(rng, 2000, 120)
         for name, cfg, L, own in KERNEL_CASES:
             m = GINModel(cfg, *seeded_model(cfg, SEED + 1)).to(dev)
@@ -953,6 +1138,23 @@ def main() -> int:
             errs.append(err)
             if not (err <= TOL and torch.isfinite(got).all()):
                 raise AssertionError(f"kernel vs plain {name}: max abs {err} > {TOL}")
+            # the bf16 route on the inputs the bf16 path gives it
+            cb = cfg.with_precision("bf16")
+            x0, flags = chunk_inputs(cb, p, own or structs, L, dev, C=64)
+            n = forward_windows.bf16_launches
+            got = forward_windows(cb, p, s, x0, *flags, L)
+            ref = forward_windows_reference(cb, p, s, x0, *flags, L, precision="bf16")
+            torch.cuda.synchronize()
+            err = (got - ref).abs().max().item()
+            cos = torch.nn.functional.cosine_similarity(got.double(), ref.double(), dim=1)
+            rec[name]["bf16"] = {"max_abs_err": err, "min_cosine": cos.min().item()}
+            bf16_errs.append(err)
+            if forward_windows.bf16_launches != n + 1:
+                raise AssertionError(f"kernel vs plain {name}: the bf16 route did not launch")
+            if not (err <= BF16_TOL and cos.min().item() >= BF16_COS
+                    and torch.isfinite(got).all()):
+                raise AssertionError(f"kernel vs plain {name} (bf16): max abs {err} > "
+                                     f"{BF16_TOL} or a cosine {cos.min().item()} < {BF16_COS}")
 
     dp_errs = []
     with phase("dp_kernel_vs_plain", {"tolerance": DP_TOL}) as rec:
@@ -1048,6 +1250,7 @@ def main() -> int:
                    warm_split=warm_split(model, structures, WINDOW),
                    cli_host_split=cli_host_split(src, ckpt, os.path.join(tmp, "split.tsv"),
                                                  structures, WINDOW, dev))
+    main_params, main_state, main_emb = params, state, emb
 
     with tempfile.TemporaryDirectory() as tmp, phase("align_path", {"card": card}) as rec:
         rnas = [random_structure(rng, int(rng.integers(150, 351)))
@@ -1164,6 +1367,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp, phase("variants_path", {"card": card}) as rec:
         rec.update(variants_path(tmp, dev))
 
+    with tempfile.TemporaryDirectory() as tmp, phase("bf16_path", {"card": card}) as rec:
+        rec.update(bf16_path(tmp, cfg, main_params, main_state, structures, main_emb, dev))
+        bf16_launches = rec["windows"]["bf16_kernel_launches"]
+
     with phase("kernel_timing", {"card": card}) as rec:
         p, s = model.params, model.state
         x0, flags = chunk_inputs(cfg, p, structures, WINDOW, dev)
@@ -1180,6 +1387,21 @@ def main() -> int:
                    active_rows_mean=rows.mean().item(), active_rows_max=rows.max().item(),
                    smem_rows=_library().windows_encoder_smem_rows(WINDOW, cfg.hidden_dims[-1]),
                    max_abs_err=errs[-1])
+
+        # K1's bf16 route on the same windows, as the bf16 path builds them
+        cb = cfg.with_precision("bf16")
+        xb, fb = chunk_inputs(cb, p, structures, WINDOW, dev)
+        pb = pack_params(cb, p, s)
+        got = forward_windows(cb, p, s, xb, *fb, WINDOW, packed=pb)
+        ref = forward_windows_reference(cb, p, s, xb, *fb, WINDOW)
+        bf16_errs.append((got - ref).abs().max().item())
+        b_ms = cuda_ms(lambda: forward_windows(cb, p, s, xb, *fb, WINDOW, packed=pb), 50)
+        b_plain = cuda_ms(lambda: forward_windows_reference(cb, p, s, xb, *fb, WINDOW), 20)
+        b_bound, b_by, _ = encoder_bound_ms(cb, xb, fb, pb, WINDOW, BF16_FLOPS)
+        rec["bf16"] = dict(ms=b_ms, plain_ms=b_plain, bound_ms=b_bound, bound_by=b_by,
+                           share_of_bound=b_bound / b_ms, f32_route_over_bf16=ms / b_ms,
+                           max_abs_err=bf16_errs[-1])
+        k1_bf16 = rec["bf16"]
 
         # K2 on the align path's first batch, as the CLI pads it and padded
         # to 384 x 384: the route the wrapper takes (ms, the warp route) and
@@ -1222,6 +1444,19 @@ def main() -> int:
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
+        "library_ms": None,
+    }, {
+        "name": "windows_encoder_bf16",
+        "route": "cuda",
+        "precision": "bf16",
+        "source": "ginfinity_tpu_torch/ops/csrc/windows_encoder.cu",
+        "replaces": "ginfinity_tpu/ops/pallas_windows.py:84",
+        "launches": bf16_launches,
+        "max_abs_err": max(bf16_errs),
+        "ms": k1_bf16["ms"],
+        "plain_ms": k1_bf16["plain_ms"],
+        "bound_ms": k1_bf16["bound_ms"],
+        "bound_by": k1_bf16["bound_by"],
         "library_ms": None,
     }, {
         "name": "dp_wavefront",

@@ -37,6 +37,7 @@ State = dict
 
 _NORM_EPS = 1e-5  # PyG GraphNorm/LayerNorm/InstanceNorm/BatchNorm eps
 _SET2SET_STEPS = 2  # processing steps of the reference's Set2Set
+PRECISIONS = ("highest", "bf16")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,10 +60,20 @@ class GINConfig:
     gin_eps: float = 0.0
     train_eps: bool = True
     seq_weight: float = 0.0
+    # "highest": every product in float32 (the reference's numbers).
+    # "bf16": both operands of every product rounded to bfloat16, the
+    # products summed in float32 (the speed mode).  A runtime choice, not
+    # a property of the model: it stays out of the checkpoint metadata.
+    matmul_precision: str = "highest"
 
     @property
     def gin_layers(self) -> int:
         return len(self.hidden_dims)
+
+    def with_precision(self, precision: str) -> "GINConfig":
+        if precision not in PRECISIONS:
+            raise ValueError(f"matmul_precision must be 'highest' or 'bf16', got {precision!r}")
+        return dataclasses.replace(self, matmul_precision=precision)
 
     @staticmethod
     def create(
@@ -223,8 +234,47 @@ def init_params(generator: torch.Generator, config: GINConfig) -> tuple[Params, 
     return params, state
 
 
-def _dense(x: torch.Tensor, p: dict) -> torch.Tensor:
-    return x @ p["kernel"] + p["bias"]
+def bf16_round(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to bfloat16 (to nearest, ties to even) and back, in
+    ``x``'s dtype, with the bits of JAX's ``jnp.asarray(x, jnp.bfloat16)``:
+    a NaN becomes the quiet NaN of its sign.  A float64 ``x`` is rounded
+    to float32 first."""
+    y = x.to(torch.float32).to(torch.bfloat16).to(torch.float32)
+    y = torch.where(torch.isnan(y), torch.copysign(torch.full_like(y, float("nan")), x), y)
+    return y.to(x.dtype)
+
+
+# this torch's bf16 product with a float32 output (CUDA only)
+_MM_DTYPE = "dtype" in torch.ops.aten.mm.overloads()
+
+
+def bf16_matmul_route(device: torch.device) -> str:
+    """How :func:`_matmul` computes a bf16 product on ``device``:
+    ``"mm.dtype"`` (a bf16 GEMM with float32 sums and output,
+    ``aten::mm.dtype``) or ``"emulation"`` (operands rounded to bf16,
+    then a float32 product)."""
+    return "mm.dtype" if _MM_DTYPE and device.type == "cuda" else "emulation"
+
+
+def _matmul(a: torch.Tensor, b: torch.Tensor, precision: str = "highest") -> torch.Tensor:
+    """``a @ b`` (``b`` 2-D) at ``precision``.  Under ``"bf16"`` both
+    operands are rounded to bfloat16 and the exact products summed in
+    float32, which is the JAX package's ``Precision.DEFAULT`` on the TPU.
+    Products of two bf16 values are exact in float32, so the emulation
+    (rounded operands, then a float32 product) computes the same sums."""
+    if precision == "highest":
+        return a @ b
+    if precision != "bf16":
+        raise ValueError(f"matmul_precision must be 'highest' or 'bf16', got {precision!r}")
+    if bf16_matmul_route(a.device) == "mm.dtype":
+        a2 = a.reshape(-1, a.shape[-1]).to(torch.bfloat16)
+        out = torch.mm(a2, b.to(torch.bfloat16), out_dtype=torch.float32)
+        return out.reshape(*a.shape[:-1], b.shape[-1])
+    return bf16_round(a) @ bf16_round(b)
+
+
+def _dense(x: torch.Tensor, p: dict, precision: str = "highest") -> torch.Tensor:
+    return _matmul(x, p["kernel"], precision) + p["bias"]
 
 
 def apply_node_norm(config: GINConfig, state: State, x: torch.Tensor) -> torch.Tensor:
@@ -304,16 +354,17 @@ def encode_nodes(config: GINConfig, params: Params, state: State, batch: GraphBa
         raise NotImplementedError(
             "training mode and dropout are not ported yet (ROADMAP queue 1, item 10)"
         )
-    x = _dense(batch.node_feat, params["node_encoder"])
+    prec = config.matmul_precision
+    x = _dense(batch.node_feat, params["node_encoder"], prec)
     for i in range(config.gin_layers):
         conv = params["convs"][i]
         h_in = x
-        edge_emb = _dense(batch.edge_attr, conv["edge_lin"])
+        edge_emb = _dense(batch.edge_attr, conv["edge_lin"], prec)
         msg = torch.relu(x[batch.edge_src] + edge_emb) * batch.edge_mask[:, None]
         agg = _segment_sum(msg, batch.edge_dst, batch.num_nodes_padded)
         h = (1.0 + conv["eps"]) * x + agg
-        h = torch.relu(_dense(h, conv["mlp0"]))
-        h = torch.relu(_dense(h, conv["mlp1"]))
+        h = torch.relu(_dense(h, conv["mlp0"], prec))
+        h = torch.relu(_dense(h, conv["mlp1"], prec))
         norm = config.norm_type
         if norm == "graph":
             h = _graph_norm(h, params["norms"][i], batch)
@@ -339,7 +390,8 @@ def get_node_embeddings(config: GINConfig, params: Params, state: State,
     return x
 
 
-def _set2set(params: Params, x: torch.Tensor, batch: GraphBatch) -> torch.Tensor:
+def _set2set(params: Params, x: torch.Tensor, batch: GraphBatch,
+             precision: str = "highest") -> torch.Tensor:
     """Set2Set pooling ``[G+1, 2D]``: the LSTM's two steps written out in
     torch's layout (gates i, f, g, o).  Masked nodes score the float32
     minimum, not -inf, so a graph without real nodes (the trash segment,
@@ -354,7 +406,8 @@ def _set2set(params: Params, x: torch.Tensor, batch: GraphBatch) -> torch.Tensor
     c = x.new_zeros((g1, d))
     neg_inf = torch.finfo(x.dtype).min
     for _ in range(_SET2SET_STEPS):
-        gates = q_star @ p["w_ih"].T + p["b_ih"] + h @ p["w_hh"].T + p["b_hh"]
+        gates = (_matmul(q_star, p["w_ih"].T, precision) + p["b_ih"]
+                 + _matmul(h, p["w_hh"].T, precision) + p["b_hh"])
         gi, gf, gg, go = gates.chunk(4, dim=1)
         c = torch.sigmoid(gf) * c + torch.sigmoid(gi) * torch.tanh(gg)
         h = torch.sigmoid(go) * torch.tanh(c)
@@ -375,13 +428,13 @@ def pool_and_project(config: GINConfig, params: Params, x: torch.Tensor,
     with the trash segment dropped.  Mean pooling divides by the real
     node count, at least 1."""
     if config.pooling_type == "set2set":
-        pooled = _set2set(params, x, batch)
+        pooled = _set2set(params, x, batch, config.matmul_precision)
     else:
         pooled = _segment_sum(x * batch.node_mask[:, None], batch.node_graph,
                               batch.num_graphs + 1)
         if config.pooling_type == "global_mean_pool":
             pooled = pooled / torch.clamp(_graph_counts(batch), min=1.0)[:, None]
-    return _dense(pooled, params["fc"])[: batch.num_graphs]
+    return _dense(pooled, params["fc"], config.matmul_precision)[: batch.num_graphs]
 
 
 def forward_once(config: GINConfig, params: Params, state: State, batch: GraphBatch,
@@ -484,10 +537,10 @@ class GINModel(nn.Module):
 
     def packed_windows(self):
         """The window kernel's flat parameter buffer for the model's
-        current device, packed once and reused."""
+        current device and precision, packed once and reused."""
         from ginfinity_tpu_torch.ops.windows_encoder import pack_params
 
-        key = str(self.device)
+        key = (str(self.device), self.config.matmul_precision)
         if key not in self._packed:
             self._packed = {key: pack_params(self.config, self.params, self.state)}
         return self._packed[key]

@@ -11,11 +11,20 @@
 //   then       zscore / l2 node norm, masked add or mean pool, fc head.
 //
 // What bounds it on this card: the two dense products of every layer, about
-// 95% of its floating-point work.  The TPU kernel runs them at
-// Precision.HIGHEST, several bf16 passes that emulate float32; here they run
-// on the tensor cores as 3xTF32, Hopper's counterpart of that emulation:
-// hi = tf32(a), lo = tf32(a - hi) for both operands and
-// acc += lo*hi' + hi*lo' + hi*hi' in float32 (495 / 3 TFLOP/s at most).
+// 95% of its floating-point work.  The TPU kernel takes a precision, and so
+// does this one, as two routes of one template (kBf16):
+//  * Precision.HIGHEST, several bf16 passes that emulate float32 on the TPU,
+//    runs on the tensor cores as 3xTF32, Hopper's counterpart of that
+//    emulation: hi = tf32(a), lo = tf32(a - hi) for both operands and
+//    acc += lo*hi' + hi*lo' + hi*hi' in float32 (495 / 3 TFLOP/s at most).
+//  * Precision.DEFAULT, one bf16 pass with float32 sums on the TPU, runs as
+//    one bf16 wgmma (m64n128k16, 989 TFLOP/s at most): the activations are
+//    rounded to bf16 (cvt.rn, to nearest even, as the TPU and torch round)
+//    as the A fragments are built, the weights were rounded once when
+//    packed.  The TPU kernel's other products follow it on this route: the
+//    in-window partner rows x[j_local], which it gathers as a product with
+//    a one-hot matrix, are read as bf16(x[j]), and the fc head's operands
+//    are rounded to bf16.  Every other step stays float32.
 // Its bytes are small beside that: the encoder input is read once and one
 // row per window is written.
 //
@@ -44,9 +53,10 @@
 //    path to the tensor cores, and the kernel ran slower on the card.
 //  * Weights arrive asynchronously: pack_params stores each W transposed
 //    ([dout, din], K-major, as tf32 wgmma takes it), split into hi and lo and
-//    cut into 128 x 16 stage images in the tensor cores' core-matrix order, so
-//    one thread moves one stage with one bulk copy (TMA) into a 3-stage
-//    ring: the last warp done with a slot refills it with the stage three
+//    cut into 128 x 16 stage images in the tensor cores' core-matrix order
+//    (the bf16 route: rounded to bf16, one part, 128 x 64 stage images of
+//    the same 16 KB), so one thread moves one stage with one bulk copy
+//    (TMA) into a 3-stage ring: the last warp done with a slot refills it with the stage three
 //    further on, and an mbarrier says when its bytes have landed, so the
 //    next stages load while the current one is multiplied (and the next
 //    layer's first stages during GraphNorm).
@@ -58,6 +68,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kGroups = 3;                   // warpgroups
@@ -65,11 +77,13 @@ constexpr int kThreads = 128 * kGroups;
 constexpr int kWarps = kThreads / 32;
 constexpr int BM = 64;                       // rows of a wgmma tile
 constexpr int BN = 128;                      // columns of a wgmma tile
-constexpr int BK = 16;                       // depth of one weight stage
+constexpr int BK = 16;                       // depth of one weight stage (3xTF32)
+constexpr int BK_BF16 = 64;                  // depth of one weight stage (bf16)
 constexpr int kStages = 3;
 constexpr int kPartFloats = BN * BK;         // one of hi / lo: 8 KB
 constexpr int kStageFloats = 2 * kPartFloats;
 constexpr uint32_t kStageBytes = 4u * kStageFloats;
+static_assert(2 * BN * BK_BF16 == 4 * kStageFloats, "a bf16 stage fills one ring slot");
 constexpr int kPad = 4;                      // floats of padding per plane row
 constexpr int kLayerMeta = 8;  // w0, w1, b0, b1, eb, gn offsets; din; dout
 constexpr int kMaxSmem = 232448;
@@ -145,6 +159,20 @@ __device__ __forceinline__ uint64_t make_desc(const float* p, uint32_t lbo, uint
          (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32);
 }
 
+// {lo, hi} rounded to bf16 (to nearest, ties to even) and packed into one
+// register, lo in the low half: the element of the lower column, as a bf16
+// wgmma A fragment holds two neighbouring columns.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  uint32_t d;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(d) : "f"(hi), "f"(lo));
+  return d;
+}
+
+// v rounded to bf16 (to nearest, ties to even), as a float
+__device__ __forceinline__ float round_bf16(float v) {
+  return __uint_as_float(pack_bf16(v, 0.f) << 16);
+}
+
 // v rounded to tf32 as cvt.rna.tf32.f32 rounds it (to nearest, ties away
 // from zero), in two integer operations on the integer pipe (256 roundings
 // per thread a layer at width 128).
@@ -203,19 +231,56 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[64], const uint32_t (&a)[4
       : "memory");
 }
 
+// d[64 x 128] += a[64 x 16] (registers, bf16) * b[16 x 128] (shared, bf16,
+// K-major: imm-trans-b 0), float32 sums
+__device__ __forceinline__ void wgmma_bf16(float (&d)[64], const uint32_t (&a)[4],
+                                           uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1)
+      : "memory");
+}
+
 // ---- the weight ring --------------------------------------------------------
 
 // The weight stages in the order the products take them: per layer, per
-// round of tiles, W0 then W1, each by 128-column tile, then by 16-deep stage.
+// round of tiles, W0 then W1, each by 128-column tile, then by stage of
+// `depth` inputs (BK, or BK_BF16 on the bf16 route).
 struct Feed {
   const float* params;
   const long long* meta;   // kLayerMeta per layer
   const long long* tmeta;  // w0t, w1t offsets per layer
-  int n_layers, rounds;
+  int n_layers, rounds, depth;
   int li, rd, mat, u, units;
   __device__ __forceinline__ void set_units() {
     const int din = (int)meta[kLayerMeta * li + 6], dout = (int)meta[kLayerMeta * li + 7];
-    units = (dout / BN) * ((mat ? dout : din) / BK);
+    units = (dout / BN) * ((mat ? dout : din) / depth);
   }
   __device__ __forceinline__ bool done() const { return li >= n_layers; }
   __device__ __forceinline__ const float* src() const {
@@ -235,7 +300,8 @@ struct Feed {
   }
 };
 
-// kStages slots of [hi, lo] x [BN x BK] core-matrix images.  A slot's full
+// kStages slots of [hi, lo] x [BN x BK] core-matrix images (bf16 route:
+// one [BN x BK_BF16] image of the same bytes).  A slot's full
 // barrier completes when its bytes land; each warp adds one to the slot's
 // release count when its wgmmas are done with it, and the warp that makes
 // the count kWarps refills the slot with the stage kStages further on
@@ -295,22 +361,39 @@ struct Tile {
 // weight matrix: acc = A[tile, :kdim] * W[:kdim, n-tile], the weights taken
 // stage by stage from the ring.  load(q, c) gives A at this thread's row q
 // (0 or 1) and column c, 0 past the window's rows.  Each stage's A is built
-// (and split into hi and lo) while the previous stage's wgmmas run.
-// Every warpgroup runs every product, one past the window's rows on zeros:
-// a wgmma under a branch on the row count would be serialised, and a chunk
-// takes as long as its largest window anyway.
-template <class LoadA>
+// (and split into hi and lo, or rounded to bf16) while the previous stage's
+// wgmmas run.  Every warpgroup runs every product, one past the window's
+// rows on zeros: a wgmma under a branch on the row count would be
+// serialised, and a chunk takes as long as its largest window anyway.
+template <bool kBf16, class LoadA>
 __device__ __forceinline__ void tile_product(float (&acc)[64], int kdim, const LoadA& load,
                                              Ring& ring, int lane) {
   static_assert(BK == 16, "two k8 steps per stage");
+  static_assert(BK_BF16 == 64, "four k16 steps per stage");
+  constexpr int kDepth = kBf16 ? BK_BF16 : BK;
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = 0.f;
   fence_acc(acc);  // the accumulators are touched only here and after the
                    // last wait: a use while a wgmma is in flight would wait
   const int t = lane & 3;
-  uint32_t a[2][2][2][4];  // [buffer][k8 step][hi, lo][fragment]
+  // [buffer] then 3xTF32: [k8 step][hi, lo][fragment]; bf16: [k16 step][fragment]
+  using Frags = typename std::conditional<kBf16, uint32_t[4][4], uint32_t[2][2][4]>::type;
+  Frags a[2];
   int held = -1;           // stage whose wgmmas may still be reading
-  auto stage_step = [&](int k0, uint32_t (&ab)[2][2][4]) {
+  auto stage_step = [&](int k0, Frags& ab) {
+    if constexpr (kBf16) {
+      // A of the stage's four k16 steps; fragment f: row q = f & 1
+      // (groupID, + 8), columns 2t + 8 (f >> 1) and the next, lower in the
+      // low half
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int f = 0; f < 4; ++f) {
+          const int c = k0 + 16 * kk + 2 * t + 8 * (f >> 1);
+          ab[kk][f] = pack_bf16(load(f & 1, c), load(f & 1, c + 1));
+        }
+      }
+    } else {
     // A of the stage's two k8 steps; fragment f: row q = f & 1 (groupID,
     // + 8), column t + 4 (f >> 1)
 #pragma unroll
@@ -323,9 +406,18 @@ __device__ __forceinline__ void tile_product(float (&acc)[64], int kdim, const L
         ab[kk][1][f] = to_tf32(v - __uint_as_float(hi));
       }
     }
+    }
     mbar_wait(&ring.full[ring.stage], ring.phase);
     const float* hi_b = ring.buf + ring.stage * kStageFloats;
     wgmma_fence();
+    if constexpr (kBf16) {
+      // the stage: 16 groups of 8 columns, each 8 chunks of 8 inputs
+      // (128 B core matrices: lbo 128 B along K, sbo 1024 B along N); a
+      // k16 step reads two chunks, 256 B on
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_bf16(acc, ab[kk], make_desc(hi_b + 64 * kk, 128, 128 * (BK_BF16 / 8)));
+    } else {
 #pragma unroll
     for (int kk = 0; kk < 2; ++kk) {
       const uint64_t dh = make_desc(hi_b + 64 * kk, 128, 128 * (BK / 4));
@@ -334,15 +426,16 @@ __device__ __forceinline__ void tile_product(float (&acc)[64], int kdim, const L
       wgmma_tf32(acc, ab[kk][0], dl);  // hi * lo'
       wgmma_tf32(acc, ab[kk][0], dh);  // hi * hi'
     }
+    }
     wgmma_commit();
     wgmma_wait<1>();  // the previous stage is done: its A buffer and slot are free
     if (held >= 0) ring.release(held, lane);
     held = ring.stage;
     ring.advance();
   };
-  for (int k0 = 0; k0 < kdim; k0 += 2 * BK) {  // kdim is a multiple of 128
+  for (int k0 = 0; k0 < kdim; k0 += 2 * kDepth) {  // kdim is a multiple of 128
     stage_step(k0, a[0]);
-    stage_step(k0 + BK, a[1]);
+    stage_step(k0 + kDepth, a[1]);
   }
   wgmma_wait<0>();
   fence_acc(acc);
@@ -478,6 +571,7 @@ inline size_t pool_for(int L, int mw) {
   return (room < most ? room : most) / 4 * 4;
 }
 
+template <bool kBf16>
 __global__ void __launch_bounds__(kThreads, 1)
 windows_encoder_kernel(const float* __restrict__ x0, const int* __restrict__ j_local,
                        const float* __restrict__ bp_in, const float* __restrict__ pulled,
@@ -531,7 +625,7 @@ windows_encoder_kernel(const float* __restrict__ x0, const int* __restrict__ j_l
   const int rounds = (n_tiles + kGroups - 1) / kGroups;
 
   Ring ring{s.ring, s.full, s.released, 0, 0u,
-            Feed{params, meta, tmeta, n_layers, rounds, 0, 0, 0, 0, 0}};
+            Feed{params, meta, tmeta, n_layers, rounds, kBf16 ? BK_BF16 : BK, 0, 0, 0, 0, 0}};
   ring.feed.set_units();
   for (int st = 0; st < kStages; ++st) {  // the first stages, then kStages ahead
     if (tid == 0 && !ring.feed.done()) ring.load(st);
@@ -611,8 +705,12 @@ windows_encoder_kernel(const float* __restrict__ x0, const int* __restrict__ j_l
           auto row = [&](int i) {
             return i >= 0 ? *reinterpret_cast<const float4*>(X + (size_t)i * mw + c) : zero;
           };
-          const float4 xs = row(r), xn = row(nb.x), xp = row(nb.y), xj = row(nb.z),
-                       xq = row(nb.w);
+          const float4 xs = row(r), xn = row(nb.x), xp = row(nb.y), xq = row(nb.w);
+          float4 xj = row(nb.z);
+          if (kBf16 && r < L) {  // the in-window partner, bf16 as the TPU's G @ x
+            xj = make_float4(round_bf16(xj.x), round_bf16(xj.y), round_bf16(xj.z),
+                             round_bf16(xj.w));
+          }
           auto msg = [&](float x, float n, float p, float j, float q, float en, float ep,
                          float eb, float o) {
             float agg = (nb.x >= 0 ? relu(n + en) : 0.f) + (nb.y >= 0 ? relu(p + ep) : 0.f);
@@ -634,13 +732,13 @@ windows_encoder_kernel(const float* __restrict__ x0, const int* __restrict__ j_l
         };
       };
       for (int n0 = 0; n0 < dout; n0 += BN) {
-        tile_product(acc, din, plane(M), ring, lane);
+        tile_product<kBf16>(acc, din, plane(M), ring, lane);
         group_sync(g);  // every warp has read M before T (maybe M) is written
         store_relu(acc, T, ld, tile, n_rows, b0, n0, lane);
       }
       group_sync(g);  // T of the tile is whole
       for (int n0 = 0; n0 < dout; n0 += BN) {
-        tile_product(acc, dout, plane(T), ring, lane);
+        tile_product<kBf16>(acc, dout, plane(T), ring, lane);
         group_sync(g);  // every warp has read T before H (maybe T) is written
         store_relu(acc, H, ld, tile, n_rows, b1, n0, lane);
       }
@@ -711,14 +809,20 @@ windows_encoder_kernel(const float* __restrict__ x0, const int* __restrict__ j_l
   column_sums(
       [&](int r, int c) { return div_rn(X[(size_t)r * mw + c], s.nrm[r], s.nrm[2 * L + r]); },
       n_rows, h_last, s.red, s.s_a);
-  if (mean_pool) {
-    for (int c = tid; c < h_last; c += kThreads) s.s_a[c] = s.s_a[c] / cnt;
+  if (mean_pool || kBf16) {  // the bf16 route's fc head reads bf16(pooled)
+    for (int c = tid; c < h_last; c += kThreads) {
+      const float v = mean_pool ? s.s_a[c] / cnt : s.s_a[c];
+      s.s_a[c] = kBf16 ? round_bf16(v) : v;
+    }
     __syncthreads();
   }
   for (int o = tid; o < out_dim; o += kThreads) {
     float a = 0.f;
 #pragma unroll 8
-    for (int f = 0; f < h_last; ++f) a = fmaf(s.s_a[f], fcw[(size_t)f * out_dim + o], a);
+    for (int f = 0; f < h_last; ++f) {
+      const float w = fcw[(size_t)f * out_dim + o];
+      a = fmaf(s.s_a[f], kBf16 ? round_bf16(w) : w, a);  // bf16 products are exact
+    }
     out[win * out_dim + o] = a + fcb[o];
   }
   K1_STAMP(15);
@@ -751,20 +855,24 @@ int windows_encoder_stamps(unsigned long long* dst, int n) {
 // params/meta: the flat parameter buffer and its int64 offset table
 // (ops/windows_encoder.py::pack_params).  workspace: [C, 4, 2L, mw + 4] f32,
 // used by the windows whose planes do not fit in shared memory.
-// norm_mode: bit 0 = l2, bit 1 = zscore.  Returns a cudaError_t.
+// norm_mode: bit 0 = l2, bit 1 = zscore.  route: 0 = 3xTF32 (the TPU
+// kernel's Precision.HIGHEST), 1 = bf16 (Precision.DEFAULT), with params
+// packed for that route.  Returns a cudaError_t.
 int windows_encoder_launch(const float* x0, const int* j_local, const float* bp_in,
                            const float* pulled, const float* fwd_w, const float* fwd_p,
                            const float* params, const long long* meta, float* workspace,
                            float* out, int C, int L, int n_layers, int mw, int out_dim,
-                           int mean_pool, int norm_mode, int use_res, float eps,
+                           int mean_pool, int norm_mode, int use_res, int route, float eps,
                            void* stream) {
   if (C == 0) return 0;
+  if (route != 0 && route != 1) return (int)cudaErrorInvalidValue;
   const size_t pool = pool_for(L, mw);
   const size_t smem = carve(nullptr, L, mw, pool, nullptr);
-  cudaError_t err = cudaFuncSetAttribute(
-      windows_encoder_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const auto kernel = route ? windows_encoder_kernel<true> : windows_encoder_kernel<false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  windows_encoder_kernel<<<C, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<C, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       x0, j_local, bp_in, pulled, fwd_w, fwd_p, params, meta, workspace, out, L,
       n_layers, mw, out_dim, mean_pool, norm_mode, use_res, eps, (long long)pool);
   return (int)cudaGetLastError();

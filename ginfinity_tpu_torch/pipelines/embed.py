@@ -6,9 +6,13 @@ defaults, the same TSV schema (``embedding_vector`` as comma-joined
 or on the CPU with ``--device cpu``: whole-structure graph embeddings
 (the default), the fused sliding-window mode (``--window-size``), and
 precomputed window graphs (``--graph-pt`` with ``--meta-tsv``, the
-output of ``python -m ginfinity_tpu_torch.pipelines.windows``).  The
-options that are not ported raise ``NotImplementedError`` naming the
-ROADMAP item that ports them.
+output of ``python -m ginfinity_tpu_torch.pipelines.windows``).  Each
+mode takes ``--precision bf16``, the speed mode (products of bf16
+operands summed in float32); ``--bf16-check N`` measures its agreement
+with f32 on a sample of the window mode's corpus, and ``--profile-dir``
+writes a ``torch.profiler`` trace of the run.  Several cards
+(``--data-parallel``) raise ``NotImplementedError`` naming the ROADMAP
+item that ports them.
 """
 
 from __future__ import annotations
@@ -47,6 +51,7 @@ def generate_embeddings(
     graph_encoding_override: str | None = None,
     seq_weight_override: float | None = None,
     sequence_column: str = "sequence",
+    precision: str = "highest",
     device=None,
 ):
     """One graph embedding per valid structure: the id column, then
@@ -61,7 +66,7 @@ def generate_embeddings(
     if keep_cols:
         final_keep.extend(keep_cols)
 
-    engine = InferenceEngine.from_checkpoint(model_path, device=device,
+    engine = InferenceEngine.from_checkpoint(model_path, precision=precision, device=device,
                                              max_nodes_per_batch=batch_nodes)
     cfg = engine.config
     graph_encoding = (graph_encoding_override or cfg.graph_encoding or "standard").lower()
@@ -125,7 +130,9 @@ def generate_window_embeddings(
     mask_threshold: float = 0.0,
     keep_cols: list | None = None,
     quiet: bool = False,
+    precision: str = "highest",
     max_programs: int | None = None,
+    bf16_check: int = 0,
     wire: str | None = None,
     device=None,
 ):
@@ -139,6 +146,13 @@ def generate_window_embeddings(
 
     dev = resolve_device(device)
     cfg, params, state, _ = load_checkpoint(model_path)
+    if precision != "highest":
+        cfg = cfg.with_precision(precision)
+        if not quiet:
+            print("[generate_window_embeddings] bf16 speed mode: per-window "
+                  "agreement with f32 has a tail; --bf16-check N measures it on "
+                  "this corpus. Use the default f32 when exact retrieval parity "
+                  "matters.")
     model = GINModel(cfg, params, state).to(dev)
 
     structures, ids = [], []
@@ -153,6 +167,10 @@ def generate_window_embeddings(
         model, structures, window_size, keep_paired_neighbors, mask_threshold,
         max_programs=max_programs, wire=wire, device=dev,
     )
+    if precision != "highest" and bf16_check > 0:
+        _report_bf16_tail(cfg, params, state, structures, ids, results, window_size,
+                          keep_paired_neighbors, mask_threshold, bf16_check, log_path,
+                          quiet, wire=wire, device=dev)
     base_by_id: dict = {}
     if keep_cols:
         for r in input_table.rows:
@@ -189,6 +207,69 @@ def generate_window_embeddings(
         print(f"Window embeddings saved to {output_path}")
 
 
+def _report_bf16_tail(cfg, params, state, structures, ids, results, window_size,
+                      keep_paired_neighbors, mask_threshold, n_sample, log_path, quiet,
+                      wire=None, device=None):
+    """``--bf16-check N``: re-embed a fixed sample of about ``N`` windows
+    (whole structures, in the order of ``default_rng(0).permutation``) at
+    f32 and log each window's cosine against its bf16 embedding: mean,
+    min and the worst windows.  With ``wire='f16'`` the delivered rows
+    also carry the wire's rounding, so the sample is first re-embedded at
+    the production precision with the exact f32 wire, and the comparison
+    is of bf16 compute alone."""
+    from ginfinity_tpu_torch.models.gine import GINModel
+    from ginfinity_tpu_torch.pipelines.fast_windows import embed_corpus_windows
+
+    rng = np.random.default_rng(0)
+    order = rng.permutation(len(structures))
+    take, n_win = [], 0
+    for i in order:
+        if len(results[i][0]) == 0:
+            continue
+        take.append(int(i))
+        n_win += len(results[i][0])
+        if n_win >= n_sample:
+            break
+    if not take:
+        return
+    sample = [structures[i] for i in take]
+    if wire == "f16":
+        prod = embed_corpus_windows(GINModel(cfg, params, state), sample, window_size,
+                                    keep_paired_neighbors, mask_threshold, device=device)
+        results = dict(zip(take, prod))
+    f32_res = embed_corpus_windows(GINModel(cfg.with_precision("highest"), params, state),
+                                   sample, window_size, keep_paired_neighbors,
+                                   mask_threshold, device=device)
+    cos, names = [], []
+    for i, (_, f32_emb) in zip(take, f32_res):
+        starts, bf16_emb = results[i]
+        a = np.asarray(bf16_emb, np.float32)
+        b = np.asarray(f32_emb, np.float32)
+        num = np.sum(a * b, axis=1)
+        den = np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1)
+        cos.append(num / np.maximum(den, 1e-12))
+        names.extend(f"{ids[i]}_{int(s)}" for s in starts)
+    cos = np.concatenate(cos)
+    worst = np.argsort(cos)[: min(5, len(cos))]
+    diag = {
+        "bf16_check_windows": int(len(cos)),
+        "bf16_cosine_vs_f32_mean": round(float(cos.mean()), 6),
+        "bf16_cosine_vs_f32_min": round(float(cos.min()), 6),
+        "bf16_worst_windows": {names[int(j)]: round(float(cos[j]), 6) for j in worst},
+    }
+    if wire == "f16":
+        diag["wire_note"] = ("delivered rows additionally carry --wire f16 "
+                             "rounding (<=2^-11 rel/element), excluded from "
+                             "this comparison")
+    log_information(log_path, diag, "bf16_check")
+    if not quiet:
+        print(f"[bf16-check] {len(cos)} windows re-embedded at f32: "
+              f"cosine mean {diag['bf16_cosine_vs_f32_mean']}, "
+              f"min {diag['bf16_cosine_vs_f32_min']}"
+              + ("" if cos.min() >= 0.99 else
+                 f" — WORST: {diag['bf16_worst_windows']}"))
+
+
 def _embed_precomputed(args, device):
     """``--graph-pt`` mode: one embedding per window graph, in the order of
     the metadata TSV, written beside each row's metadata."""
@@ -198,8 +279,8 @@ def _embed_precomputed(args, device):
     meta, graphs = load_precomputed(args.graph_pt, args.meta_tsv)
     log_path = os.path.splitext(args.output)[0] + ".log"
     open(log_path, "a").close()
-    engine = InferenceEngine.from_checkpoint(args.model_path, device=device,
-                                             max_nodes_per_batch=args.batch_nodes)
+    engine = InferenceEngine.from_checkpoint(args.model_path, precision=_precision(args),
+                                             device=device, max_nodes_per_batch=args.batch_nodes)
     embeddings = engine.embed_graphs(adapt_graphs_to_model(graphs, engine.config))
     write_precomputed(args.output, meta, args.id_column, "embedding_vector",
                       [format_embedding(v) for v in embeddings])
@@ -233,7 +314,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--seq-weight", type=float, default=None)
     parser.add_argument("--quiet", action="store_true")
     parser.add_argument("--profile-dir", default=None,
-                        help="Write a profiler trace of the run to this directory.")
+                        help="Write a torch.profiler trace of the run to this directory "
+                             "(Chrome trace JSON; view with TensorBoard or Perfetto).")
     parser.add_argument("--window-size", type=int, default=None,
                         help="Fused mode: embed every sliding window of this "
                              "length directly on the device.")
@@ -254,7 +336,10 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--wire", choices=["f32", "f16"], default=None,
                         help="With --window-size: encoding of the embedding "
                              "download. f32 is exact; f16 halves the bytes at "
-                             "<=4.9e-4 relative rounding.")
+                             "<=4.9e-4 relative rounding. Default: f32, except "
+                             "under --precision bf16, where f16 is used (its "
+                             "rounding is 8x below bf16's own step); pass "
+                             "--wire f32 to force the exact download.")
     parser.add_argument("--bf16-check", type=int, default=0, metavar="N",
                         help="With --precision bf16 and --window-size: "
                              "re-embed ~N sampled windows at f32 and log the "
@@ -262,17 +347,46 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
+def _precision(args) -> str:
+    """The config's ``matmul_precision`` for ``--precision``."""
+    return "highest" if args.precision == "f32" else "bf16"
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    if args.profile_dir:
+        return _profiled(args)
+    return _main_inner(args)
+
+
+def _profiled(args):
+    """The run inside ``torch.profiler.profile``: host activity, and the
+    card's when the run is on one; the trace is written into
+    ``--profile-dir`` as ``<host>_<pid>.<ms>.pt.trace.json`` when the run
+    ends."""
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if torch.device(args.device or "cuda").type == "cuda" and torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(args.profile_dir)):
+        return _main_inner(args)
+
+
+def _main_inner(args):
     if args.wire == "f16" and args.window_size is None:
         sys.exit("ERROR: --wire f16 requires --window-size (it is the encoding "
                  "of the fused window-embedding download).")
-    if args.profile_dir:
-        raise NotImplementedError("--profile-dir is not ported yet (ROADMAP queue 1, item 4)")
-    if args.precision == "bf16" or args.bf16_check:
-        raise NotImplementedError(
-            "--precision bf16 and --bf16-check are not ported yet (ROADMAP queue 1, item 4)"
-        )
+    if args.wire is None:
+        # bf16 compute takes the f16 wire (its rounding is 8x below bf16's
+        # own step); an explicit --wire wins
+        args.wire = ("f16" if args.precision == "bf16"
+                     and args.window_size is not None else "f32")
+        if args.wire == "f16" and not args.quiet:
+            print("[generate_embeddings] --precision bf16: using the f16 "
+                  "result wire (halved download; pass --wire f32 to force "
+                  "the exact download)")
     device = resolve_device(args.device)
     if args.model_path is None:
         sys.exit("ERROR: no --model-path given. Pass --model-path "
@@ -306,6 +420,7 @@ def main(argv=None):
             quiet=args.quiet,
             graph_encoding_override=args.graph_encoding,
             seq_weight_override=args.seq_weight,
+            precision=_precision(args),
             device=device,
         )
         return
@@ -323,8 +438,10 @@ def main(argv=None):
         mask_threshold=args.mask_threshold,
         keep_cols=propagate,
         quiet=args.quiet,
+        precision=_precision(args),
         max_programs=args.max_programs,
-        wire=None if args.wire in (None, "f32") else args.wire,
+        bf16_check=args.bf16_check,
+        wire=None if args.wire == "f32" else args.wire,
         device=device,
     )
 

@@ -115,11 +115,15 @@ class InferenceEngine:
         self.max_graphs_per_batch = max_graphs_per_batch
 
     @classmethod
-    def from_checkpoint(cls, path: str, device=None, **kw) -> "InferenceEngine":
+    def from_checkpoint(cls, path: str, precision: str = "highest", device=None,
+                        **kw) -> "InferenceEngine":
+        """An engine over a checkpoint's model, its products at
+        ``precision`` (``"highest"`` or ``"bf16"``)."""
         from ginfinity_tpu_torch.models.checkpoint import load_checkpoint
 
         config, params, state, _ = load_checkpoint(path)
-        return cls(GINModel(config, params, state), device=device, **kw)
+        return cls(GINModel(config.with_precision(precision), params, state), device=device,
+                   **kw)
 
     @property
     def config(self) -> GINConfig:

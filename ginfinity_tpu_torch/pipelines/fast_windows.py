@@ -5,7 +5,9 @@ Each structure's full feature and pair arrays go to the device once;
 every window is then built there by index arithmetic and run through
 the encoder.  Window semantics are those of the JAX package's
 ``windows.slice_window``: keep-paired-neighbors pull-in, backbone cuts
-and the adjacent-pair quirk.
+and the adjacent-pair quirk.  Every product runs at the model config's
+``matmul_precision`` (``"bf16"``: the speed mode of ``--precision
+bf16``), the node encoder included.
 
 Layout (the ALIGNED layout of the JAX package): 2L slots per window;
 slot ``i < L`` holds position ``start + i`` and slot ``L + i`` holds
@@ -115,7 +117,8 @@ def _window_chunk(config: GINConfig, params: dict, feats_all: torch.Tensor,
     fwd_into_p = (idx < partner).to(f32)
 
     node_feat = torch.cat([fw, pfeat * pulled[..., None]], dim=1)
-    x0 = _dense(node_feat.reshape(C * 2 * L, -1), params["node_encoder"])
+    x0 = _dense(node_feat.reshape(C * 2 * L, -1), params["node_encoder"],
+                config.matmul_precision)
     return x0.reshape(C, 2 * L, -1), (j_local, bp_in, pulled, fwd_into_w, fwd_into_p)
 
 
@@ -128,14 +131,16 @@ def _forward_windows_aligned(config: GINConfig, params: dict, state: dict,
 
     ``use_kernel=None`` takes the window encoder (the CUDA kernel for
     CUDA tensors) exactly for the configs its gate covers; the others,
-    and ``use_kernel=False``, take the plain torch encoder."""
+    and ``use_kernel=False``, take the plain torch encoder as the JAX
+    package's XLA path computes it (partner rows gathered exactly, also
+    at bf16)."""
     x0, flags = _window_chunk(config, params, feats_all, pts_all, si, st, L,
                               keep_paired_neighbors, views)
     if use_kernel is None:
         use_kernel = windows_kernel_ok(config)
     if use_kernel:
         return forward_windows(config, params, state, x0, *flags, L, packed=packed)
-    return forward_windows_reference(config, params, state, x0, *flags, L)
+    return forward_windows_reference(config, params, state, x0, *flags, L, exact_gather=True)
 
 
 def _window_slot_counts(pt: np.ndarray, L: int, starts: np.ndarray,

@@ -29,6 +29,9 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
 
 def disable_tf32() -> None:
     """Keep float32 products in full float32 on the card, as the JAX
-    package's default ``matmul_precision="highest"`` does."""
+    package's default ``matmul_precision="highest"`` does, and the sums of
+    bf16 products (``matmul_precision="bf16"``) in float32, as the TPU
+    sums them."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False

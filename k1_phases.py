@@ -75,7 +75,7 @@ def build(tmp: str) -> dict:
             raise RuntimeError(f"nvcc failed on variant {name}:\n{out}")
         lib = ctypes.CDLL(os.path.join(tmp, f"lib{name}.so"))
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.windows_encoder_launch.argtypes = [ptr] * 10 + [i32] * 8 + [ctypes.c_float, ptr]
+        lib.windows_encoder_launch.argtypes = [ptr] * 10 + [i32] * 9 + [ctypes.c_float, ptr]
         lib.windows_encoder_launch.restype = i32
         lib.windows_encoder_smem_bytes.argtypes = [i32, i32]
         lib.windows_encoder_smem_bytes.restype = ctypes.c_size_t

@@ -143,12 +143,6 @@ def test_parser_is_flag_superset_with_same_defaults():
 
 
 @pytest.mark.parametrize("extra, exc", [
-    (["--precision", "bf16"], NotImplementedError),
-    (["--bf16-check", "5"], NotImplementedError),
-    (["--profile-dir", "p"], NotImplementedError),
-    # --graph-pt mode (ported since) refuses bf16 as the other modes do
-    (["--graph-pt", "g.npz", "--meta-tsv", "m.tsv", "--precision", "bf16"],
-     NotImplementedError),
     (["--graph-pt", "g.npz"], SystemExit),
     (["--wire", "f16"], SystemExit),
 ])

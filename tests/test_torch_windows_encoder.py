@@ -24,7 +24,7 @@ from ginfinity_tpu.models.gine import init_params as jinit
 from ginfinity_tpu.ops import pallas_windows as jpw
 from ginfinity_tpu.pipelines.msa_eval import random_structure
 from ginfinity_tpu_torch.models.checkpoint import params_from_jax
-from ginfinity_tpu_torch.models.gine import GINConfig
+from ginfinity_tpu_torch.models.gine import GINConfig, bf16_round
 from ginfinity_tpu_torch.ops import _build
 from ginfinity_tpu_torch.ops import windows_encoder as we
 from ginfinity_tpu_torch.pipelines.fast_windows import (
@@ -302,3 +302,198 @@ def test_3xtf32_product_over_packed_parts_matches_float64(which):
     # a single TF32 pass does not meet it
     one_pass = (a_hi @ hi.t()).double()
     assert float(((one_pass - ref).abs() / bound).max()) > 1
+
+
+# ---- the bf16 route (Precision.DEFAULT) ----------------------------------
+#
+# At matmul_precision "bf16" the plain version computes what the TPU kernel
+# computes at Precision.DEFAULT, with four rounding points: both MLP
+# products, the fc head and the in-window partner rows, which the TPU
+# kernel gathers as a product with a one-hot matrix (G @ x).  It is held
+# to an independent numpy emulation of pallas_windows.py::_kernel: run in
+# float64 on both sides, with the same bf16 operands, the two agree to
+# float64 order (1e-9); run in float32, the port stays within the bars
+# the card holds K1's bf16 route to (2e-3 max abs, cosine 0.99999).
+
+BF16_TOL, BF16_COS = 2e-3, 0.99999
+
+
+def _bf16(a):
+    """``a`` rounded to bf16 through float32, as float64 (ml_dtypes)."""
+    with np.errstate(invalid="ignore"):
+        return np.asarray(jnp.asarray(np.asarray(a, np.float32), jnp.bfloat16)
+                          .astype(jnp.float32)).astype(np.float64)
+
+
+def _kernel_default_np(jc, jp, js, x0, jl, bp, pulled, fwdw, fwdp, L, round_partner=True):
+    """``pallas_windows.py::_kernel`` at Precision.DEFAULT in float64 numpy,
+    window by window: every jnp.dot with its operands rounded to bf16."""
+    from ginfinity_tpu.graphs.build import window_edge_const_rows
+
+    f = lambda a: np.asarray(a, np.float64)
+    dot = lambda a, b: _bf16(a) @ _bf16(b)
+    relu = lambda a: np.maximum(a, 0.0)
+    attrs = window_edge_const_rows(jc.edge_feature_dim)
+    pos = np.arange(L)[:, None]
+    m_next, m_prev = (pos <= L - 2).astype(np.float64), (pos >= 1).astype(np.float64)
+    out = []
+    for w in range(x0.shape[0]):
+        x = f(x0[w])
+        b, p = f(bp[w])[:, None], f(pulled[w])[:, None]
+        fw, fp = f(fwdw[w])[:, None], f(fwdp[w])[:, None]
+        G = (np.arange(L)[None, :] == np.asarray(jl[w])[:, None]) * b
+        mask = np.concatenate([np.ones((L, 1)), p])
+        cnt = L + p.sum()
+        for i in range(jc.gin_layers):
+            conv, gn = jp["convs"][i], jp["norms"][i]
+            eb = dot(attrs, conv["edge_lin"]["kernel"]) + f(conv["edge_lin"]["bias"])
+            h_in, xw, xp = x, x[:L], x[L:]
+            z = np.zeros((1, x.shape[1]))
+            agg_w = relu(np.concatenate([xw[1:], z]) + eb[0]) * m_next \
+                + relu(np.concatenate([z, xw[:-1]]) + eb[1]) * m_prev
+            xj = dot(G, xw) if round_partner else G @ xw
+            e_w = fw * eb[2] + (1 - fw) * eb[3]
+            agg_w = agg_w + relu(xj + e_w) * b + relu(xp + e_w) * p
+            agg_p = relu(xw + fp * eb[2] + (1 - fp) * eb[3]) * p
+            h = (1.0 + f(conv["eps"])) * x + np.concatenate([agg_w, agg_p])
+            h = relu(dot(h, conv["mlp0"]["kernel"]) + f(conv["mlp0"]["bias"]))
+            h = relu(dot(h, conv["mlp1"]["kernel"]) + f(conv["mlp1"]["bias"]))
+            mean = (h * mask).sum(0) / cnt
+            o = h - mean * f(gn["mean_scale"])
+            var = (o * o * mask).sum(0) / cnt
+            h = f(gn["weight"]) * o / np.sqrt(var + 1e-5) + f(gn["bias"])
+            x = h + h_in if (jc.use_residual and h.shape == h_in.shape) else h
+        mode = jc.node_embed_norm if jc.normalize_nodes_before_pool else "none"
+        if mode.startswith("zscore"):
+            x = (x - f(js["node_mu"])) / (f(js["node_sigma"]) + jc.eps)
+        if mode.endswith("l2"):
+            x = x / np.maximum(np.linalg.norm(x, axis=1, keepdims=True), jc.eps)
+        pooled = (x * mask).sum(0, keepdims=True)
+        if jc.pooling_type == "global_mean_pool":
+            pooled = pooled / cnt
+        out.append((dot(pooled, jp["fc"]["kernel"]) + f(jp["fc"]["bias"]))[0])
+    return np.stack(out)
+
+
+def _bf16_setup(name, C=8):
+    kw, L = CASES[name]
+    jc, jp, js, pc, pp, ps = _models(kw)
+    pc = pc.with_precision("bf16")
+    x0, flags = _chunk(pc, pp, L, C=C)
+    jnp_tree = jax.tree_util.tree_map(np.asarray, (jp, js))
+    return jc, jnp_tree, pc, pp, ps, x0, flags, L
+
+
+def _float64(tree):
+    if isinstance(tree, dict):
+        return {k: _float64(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_float64(v) for v in tree]
+    return tree.double()
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_bf16_reference_matches_numpy_kernel_emulation(name):
+    jc, (jp, js), pc, pp, ps, x0, flags, L = _bf16_setup(name)
+    ref = _kernel_default_np(jc, jp, js, x0.numpy(), *(t.numpy() for t in flags), L)
+    got64 = we.forward_windows_reference(pc, _float64(pp), _float64(ps), x0.double(),
+                                         *flags, L).numpy()
+    np.testing.assert_allclose(got64, ref, atol=1e-9, rtol=0)
+    got = we.forward_windows_reference(pc, pp, ps, x0, *flags, L).numpy().astype(np.float64)
+    cos = (got * ref).sum(1) / (np.linalg.norm(got, axis=1) * np.linalg.norm(ref, axis=1))
+    assert np.abs(got - ref).max() <= BF16_TOL and cos.min() >= BF16_COS
+    # precision= overrides the config's; the f32 result is another one
+    f32 = we.forward_windows_reference(pc, pp, ps, x0, *flags, L, precision="highest")
+    assert torch.equal(we.forward_windows_reference(
+        pc.with_precision("highest"), pp, ps, x0, *flags, L), f32)
+    assert np.abs(f32.numpy() - got).max() > 1e-5
+    # on a CPU tensor the wrapper is the plain version and launches nothing
+    before = (we.forward_windows.launches, we.forward_windows.bf16_launches)
+    wrapped = we.forward_windows(pc, pp, ps, x0, *flags, L).numpy()
+    np.testing.assert_array_equal(wrapped, got.astype(np.float32))
+    assert (we.forward_windows.launches, we.forward_windows.bf16_launches) == before
+
+
+def test_bf16_partner_rows_are_rounded():
+    """A window whose in-window partners (bp_in set) hold values that bf16
+    cannot represent: the plain version reads bf16(x[j]), as the TPU
+    kernel's one-hot product does, and not x[j] (the XLA path's exact
+    gather, ``exact_gather=True``)."""
+    jc, (jp, js), pc, pp, ps, x0, flags, L = _bf16_setup("flagship_mean_zscore_l2")
+    jl, bp = flags[0].long(), flags[1] > 0
+    assert bp.sum() > 0
+    partners = torch.gather(x0[:, :L], 1, jl[..., None].expand(-1, -1, x0.shape[2]))[bp]
+    assert bool((bf16_round(partners) != partners).all(dim=1).any())
+    args = (x0.numpy(), *(t.numpy() for t in flags), L)
+    rounded = _kernel_default_np(jc, jp, js, *args)
+    exact = _kernel_default_np(jc, jp, js, *args, round_partner=False)
+    p64, s64, x64 = _float64(pp), _float64(ps), x0.double()
+    got = we.forward_windows_reference(pc, p64, s64, x64, *flags, L).numpy()
+    got_exact = we.forward_windows_reference(pc, p64, s64, x64, *flags, L,
+                                             exact_gather=True).numpy()
+    np.testing.assert_allclose(got, rounded, atol=1e-9, rtol=0)
+    np.testing.assert_allclose(got_exact, exact, atol=1e-9, rtol=0)
+    assert np.abs(rounded - exact).max() > 1e-6
+
+
+@pytest.mark.parametrize("name", ["flagship_mean_zscore_l2", "forgi_edges_no_node_norm"])
+def test_bf16_reference_near_pallas_interpret_at_default(name):
+    """The TPU kernel interpreted on the CPU at its bf16 setting computes
+    float32 products (the CPU ignores Precision.DEFAULT), so the port's
+    bf16 is held to it by cosine only."""
+    kw, L = CASES[name]
+    jc, jp, js, pc, pp, ps = _models(kw)
+    jc, pc = jc.with_precision("bf16"), pc.with_precision("bf16")
+    x0, flags = _chunk(pc, pp, L)
+    ref = np.asarray(jpw.forward_windows_pallas(
+        jc, jp, js, jnp.asarray(x0.numpy()), *(jnp.asarray(f.numpy()) for f in flags),
+        L, interpret=True,
+    ), np.float64)
+    got = we.forward_windows_reference(pc, pp, ps, x0, *flags, L).numpy().astype(np.float64)
+    cos = (got * ref).sum(1) / (np.linalg.norm(got, axis=1) * np.linalg.norm(ref, axis=1))
+    assert cos.min() >= 0.999
+
+
+def untile_weight_bf16(flat, din, dout):
+    """``W`` transposed (``[dout, din]``, bf16) from ``we.tile_weight_bf16``'s
+    output."""
+    tn, tk = we.TILE_N, we.TILE_K_BF16
+    t = flat.reshape(dout // tn, din // tk, tn // 8, tk // 8, 8, 8)
+    return t.permute(0, 2, 4, 1, 3, 5).reshape(dout, din)
+
+
+def test_tiled_bf16_weights_offsets_and_layout():
+    """At bf16 the packed buffer holds each W transposed, rounded once to
+    bf16, two values to a float32 slot, each on a 128-byte boundary, in
+    the stage order of the bf16 route: stage (n tile, k stage) of 128 x 64
+    values, then 8 x 8 core matrices; the edge rows are at bf16 too."""
+    kw, _ = CASES["widths_256_512_512"]
+    _, _, _, pc, pp, ps = _models(kw)
+    pc = pc.with_precision("bf16")
+    packed = we.pack_params(pc, pp, ps)
+    assert packed.precision == "bf16"
+    dims = we.layer_dims(pc)
+    base = we._LAYER_META * len(dims) + 3
+    assert packed.meta.numel() == base + 2 * len(dims)
+    end = 0
+    for i, (din, dout) in enumerate(dims):
+        conv = pp["convs"][i]
+        eb = packed.flat[int(packed.meta[8 * i + 4]):][: 4 * din].reshape(4, din)
+        assert torch.equal(eb, we._edge_rows(pc, conv))
+        for j, (name, kdim) in enumerate((("mlp0", din), ("mlp1", dout))):
+            off = int(packed.meta[base + 2 * i + j])
+            assert off % 32 == 0 and off >= end
+            end = off + kdim * dout // 2
+            flat = packed.flat[off:end].contiguous().view(torch.bfloat16)
+            ref = conv[name]["kernel"].t().to(torch.bfloat16)
+            assert torch.equal(untile_weight_bf16(flat, kdim, dout), ref)
+            assert torch.equal(we.tile_weight_bf16(conv[name]["kernel"]), flat)
+            # element (n, k) of stage (nt, ks) at ((n//8 * 8 + k//8) * 8 + n%8) * 8 + k%8
+            tn, tk = we.TILE_N, we.TILE_K_BF16
+            stage = flat.reshape(dout // tn, kdim // tk, tn * tk)
+            assert tn * tk * 2 == 2 * tn * we.TILE_K * 4  # one ring slot, 16 KB
+            for nt, ks, n, k in ((0, 0, 0, 0), (0, 1, 9, 13), (dout // tn - 1, kdim // tk - 1,
+                                                                127, 63), (1, 2, 64, 40)):
+                at = ((n // 8 * (tk // 8) + k // 8) * 8 + n % 8) * 8 + k % 8
+                assert stage[nt, ks, at] == ref[nt * tn + n, ks * tk + k]
+    assert packed.flat.numel() == end
