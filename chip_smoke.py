@@ -5,8 +5,8 @@
 
 Builds the port's CUDA kernels from the sources in this checkout, holds
 each kernel against its plain PyTorch version on the card, then drives
-the port's two paths with a seeded flagship checkpoint (6 x GINE-128,
-GraphNorm, mean pool, zscore_l2):
+the port's paths, the embedding paths with a seeded flagship checkpoint
+(6 x GINE-128, GraphNorm, mean pool, zscore_l2):
 
 * the window path, ``ginfinity-embed --window-size 120
   --keep-paired-neighbors``, on a seeded corpus of about 23,000 windows
@@ -36,7 +36,15 @@ GraphNorm, mean pool, zscore_l2):
   and once under ``--profile-dir`` (a ``torch.profiler`` trace, from which
   the card's busy share of the run is read); the graph path's 2,000
   structures at f32 and bf16 in turns; the layer-norm variant's windows
-  (the compact path) at bf16.
+  (the compact path) at bf16;
+* multiple alignment, ``ginfinity-embed-msa`` on the family of
+  ``bench_msa_scale.py`` (200 records of 240-300 positions, 128-d, seed
+  5) with its flags (``--alpha 5 --beta 0 --topk 20
+  --consistency-rounds 1 --max-pairs 2000``), in library mode (the
+  default) and in profile mode: pair-HMM posteriors, consistency and the
+  progressive profile DP in torch on the card (no kernel of the port's
+  own: it launches neither K1 nor K2, and the phase fails if either
+  counter moves).
 
 Each phase prints one JSON line with its name and seconds.  The
 ``main_path`` line also splits the warm window pass (upload, window
@@ -58,7 +66,13 @@ inputs (and, for the two-step flow, from the fused window TSV).
 bf16 (the same four rounding points) for each case, and ``bf16_path``
 prints windows/s and structures/s at bf16 with each window's and each
 structure's cosine against the f32 run, the CLI's own ``[bf16-check]``
-numbers and the trace's busy share.  Before the last line it prints the card's name and power limit (as nvidia-smi
+numbers and the trace's busy share.  ``msa_path`` prints each mode's
+seconds, pairs/s and stage seconds, and holds the run to three checks:
+the exact profile DP on the card bit-equal (column dots, M/X/Y, op codes)
+to a numpy copy of the reference's float32 DP on 8 leaf merges of the
+family; two posterior batches' slabs on the card within 1e-5 of the
+port's CPU run; a 24-record family's ``.aln.tsv`` in both modes
+identical on the card and the CPU.  Before the last line it prints the card's name and power limit (as nvidia-smi
 gives them) and one JSON line of per-kernel numbers; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero without
 that line, and so does a machine without a CUDA device.  Imports only
@@ -121,11 +135,13 @@ from ginfinity_tpu_torch.parallel.search import (
     brute_force_topk,
     recall_at_k,
 )
+from ginfinity_tpu_torch.ops import pairhmm
 from ginfinity_tpu_torch.pipelines import (
     align,
     align_batch,
     distances,
     embed,
+    msa,
     node_embed,
     windows,
 )
@@ -189,6 +205,16 @@ VARIANT_RNAS = 500         # structures of each variant's graph mode
 VARIANT_WINDOWS = 2_000    # windows of each variant's window mode
 VARIANT_SAMPLE = 16        # structures of a variant re-embedded on the CPU
 NODE_RNAS = 32             # structures of the forgi node-embedding run
+# the MSA family of bench_msa_scale.py (N = 200, L <= 300, 128-d, seed 5)
+# and its flags: kNN-capped pairs, top-k 20, one consistency round
+MSA_N, MSA_LMAX, MSA_DIM, MSA_SEED = 200, 300, 128, 5
+MSA_FLAGS = ["--alpha", "5", "--beta", "0", "--topk", "20",
+             "--consistency-rounds", "1", "--max-pairs", "2000"]
+MSA_PROFILE_ROWS = MSA_N   # rows of the profile-mode run
+MSA_SMALL = (24, 120)      # the family of the card-vs-CPU .aln.tsv check
+MSA_EXACT_MERGES = 8       # leaf merges held to the numpy oracle DP
+MSA_SLAB_BATCHES = 2       # posterior batches re-run on the CPU
+MSA_SLAB_TOL = 1e-5        # their slabs, card vs CPU, max abs
 
 FLAGSHIP = dict(hidden_dim=128, output_dim=128, gin_layers=6,
                 pooling_type="global_mean_pool", node_embed_norm="zscore_l2",
@@ -1077,6 +1103,260 @@ def bf16_path(tmp: str, cfg, params, state, structures, f32_emb: dict, dev) -> d
     rec["bf16_matmul"] = bf16_matmul_route(dev)
     return rec
 
+def msa_family_tsv(path: str, n: int, lmax: int, d: int = MSA_DIM, seed: int = MSA_SEED) -> str:
+    """``bench_msa_scale.py::build_family_tsv`` without pandas: one base
+    matrix, each record a prefix of it plus 0.15 noise (or the base and a
+    noisy tail), values rounded to 4 places, written as
+    ``DataFrame.to_csv`` writes them."""
+    rng = np.random.default_rng(seed)
+    base_len = int(lmax * 0.95)
+    base = rng.normal(size=(base_len, d)).astype(np.float32)
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f, delimiter="\t", lineterminator="\n")
+        w.writerow(["Name", "node_embeddings"])
+        for k in range(n):
+            Lk = int(rng.integers(int(lmax * 0.8), lmax + 1))
+            if Lk <= base_len:
+                emb = base[:Lk] + 0.15 * rng.normal(size=(Lk, d)).astype(np.float32)
+            else:
+                emb = np.concatenate(
+                    [base, 0.15 * rng.normal(size=(Lk - base_len, d)).astype(np.float32)])
+            w.writerow([f"s{k}", json.dumps(emb.round(4).tolist())])
+    return path
+
+
+def oracle_seq_dot(muA: np.ndarray, muB: np.ndarray) -> np.ndarray:
+    """The reference's column dots: one rounded float32 multiply and one
+    rounded add per embedding dim (tests/test_profile_exact.py)."""
+    S = np.zeros((muA.shape[0], muB.shape[0]), np.float32)
+    for d in range(muA.shape[1]):
+        S = S + muA[:, None, d] * muB[None, :, d]
+    return S
+
+
+def oracle_dp(S: np.ndarray, comp: np.ndarray, go: float, ge: float):
+    """The reference's float32 profile DP (tests/test_profile_exact.py::oracle_dp)."""
+    neg = np.float32(-1e30)
+    La, Lb = S.shape
+    M = np.full((La + 1, Lb + 1), neg, np.float32)
+    X = np.full((La + 1, Lb + 1), neg, np.float32)
+    Y = np.full((La + 1, Lb + 1), neg, np.float32)
+    M[0, 0] = 0.0
+    go32, ge32 = np.float32(go), np.float32(ge)
+    for i in range(1, La + 1):
+        X[i, 0] = max(np.float32(M[i - 1, 0] + go32), np.float32(X[i - 1, 0] + ge32))
+    for j in range(1, Lb + 1):
+        Y[0, j] = max(np.float32(M[0, j - 1] + go32), np.float32(Y[0, j - 1] + ge32))
+    for d in range(2, La + Lb + 1):
+        lo, hi = max(1, d - Lb), min(La, d - 1)
+        if lo > hi:
+            continue
+        i = np.arange(lo, hi + 1)
+        j = d - i
+        prev = np.maximum(np.maximum(M[i - 1, j - 1], X[i - 1, j - 1]), Y[i - 1, j - 1])
+        M[i, j] = (prev + S[i - 1, j - 1]) + comp[i - 1, j - 1]
+        X[i, j] = np.maximum(M[i - 1, j] + go32, X[i - 1, j] + ge32)
+        Y[i, j] = np.maximum(M[i, j - 1] + go32, Y[i, j - 1] + ge32)
+    return M, X, Y
+
+
+def oracle_walk(M, X, Y, La: int, Lb: int) -> list:
+    """The reference's value-based traceback (tests/test_profile_exact.py::oracle_walk)."""
+    i, j = La, Lb
+    ops = []
+    while i > 0 or j > 0:
+        cur, st = -1e31, 0
+        if i > 0 and j > 0 and M[i, j] > cur:
+            cur, st = M[i, j], 0
+        if i > 0 and X[i, j] > cur:
+            cur, st = X[i, j], 1
+        if j > 0 and Y[i, j] > cur:
+            cur, st = Y[i, j], 2
+        ops.append(st)
+        if st == 0:
+            i, j = i - 1, j - 1
+        elif st == 1:
+            i -= 1
+        else:
+            j -= 1
+    return ops[::-1]
+
+
+def msa_run(src: str, out_prefix: str, extra: list, device: str) -> dict:
+    """One run of the MSA CLI: wall seconds (the card drained), pairs,
+    stage seconds and the progressive stage's split from run_meta.json."""
+    t = quiet_main(msa.main, ["--input", src, "--out-prefix", out_prefix, "--device", device]
+                   + MSA_FLAGS + extra)
+    with open(f"{out_prefix}.diagnostics/run_meta.json") as f:
+        meta = json.load(f)
+    return {"seconds": t, "pairs": meta["num_pairs"], "pairs_per_s": meta["num_pairs"] / t,
+            "stage_seconds": meta["stage_times_sec"],
+            "outside_stages_seconds": t - sum(meta["stage_times_sec"].values()),
+            "progressive_split_seconds": meta["progressive_split_sec"],
+            "progressive_rounds": meta["progressive_rounds"]}
+
+
+def check_msa_outputs(out_prefix: str, records) -> None:
+    """Every record in .fasta/.sto/.aln.tsv, one alignment length, each
+    row its record with gaps; expected scores finite, N x N."""
+    with open(f"{out_prefix}.aln.tsv", newline="") as f:
+        rows = list(csv.DictReader(f, delimiter="\t"))
+    lengths = {r.name: r.emb.shape[0] for r in records}
+    if sorted(r["Name"] for r in rows) != sorted(lengths):
+        raise AssertionError("the .aln.tsv does not hold every record once")
+    if len({len(r["Aligned"]) for r in rows}) != 1:
+        raise AssertionError("aligned rows of different lengths")
+    for r in rows:
+        if len(r["Aligned"].replace("-", "")) != lengths[r["Name"]]:
+            raise AssertionError(f"{r['Name']}: the aligned row is not its record")
+    with open(f"{out_prefix}.fasta") as f:
+        if f.read().count(">") != len(lengths):
+            raise AssertionError(".fasta: wrong record count")
+    exp = np.loadtxt(f"{out_prefix}.diagnostics/expected_scores.tsv", ndmin=2)
+    if exp.shape != (len(lengths),) * 2 or not np.isfinite(exp).all():
+        raise AssertionError("expected_scores.tsv: wrong shape or not finite")
+
+
+def msa_exact_check(records, dev) -> dict:
+    """Check (a): the exact profile DP on the card, on MSA_EXACT_MERGES
+    seeded leaf pairs of the family in one batch, against the numpy
+    oracle: the column dots, M/X/Y and the op codes bit-equal."""
+    rng = np.random.default_rng(SEED + 7)
+    profiles = msa.initial_profiles(records)
+    pick = rng.choice(len(profiles), size=(MSA_EXACT_MERGES, 2), replace=False)
+    A = [profiles[a] for a, _ in pick]
+    B = [profiles[b] for _, b in pick]
+    go, ge = -10.0, -0.5
+    l1 = np.array([a.mu_struct.shape[0] for a in A])
+    l2 = np.array([b.mu_struct.shape[0] for b in B])
+    P, Q, d = int(l1.max()), int(l2.max()), A[0].mu_struct.shape[1]
+    mua = np.zeros((len(A), P, d), np.float32)
+    mub = np.zeros((len(A), Q, d), np.float32)
+    sta = np.zeros((len(A), P), np.float32)
+    stb = np.zeros((len(A), Q), np.float32)
+    for k, (a, b) in enumerate(zip(A, B)):
+        mua[k, : l1[k]], mub[k, : l2[k]] = a.mu_struct, b.mu_struct
+        sta[k, : l1[k]], stb[k, : l2[k]] = a.stem, b.stem
+    t = lambda x: torch.from_numpy(x).to(dev)  # noqa: E731
+    S = pairhmm._seq_dot_scores(t(mua), t(mub))
+    C = pairhmm._comp_bonus(t(sta), t(stb))
+    M, X, Y = pairhmm._dense(pairhmm._profile_states(S, t(l1), t(l2), go, ge, C))
+    S = S.cpu().numpy()
+    ops = pairhmm.profile_align_batch_ops_exact(
+        [(a.mu_struct, b.mu_struct) for a, b in zip(A, B)], [(a.stem, b.stem) for a, b in zip(A, B)],
+        go, ge, device=dev)
+    cells = 0
+    for k, (a, b) in enumerate(zip(A, B)):
+        La, Lb = int(l1[k]), int(l2[k])
+        So = oracle_seq_dot(a.mu_struct, b.mu_struct)
+        if not np.array_equal(S[k, :La, :Lb], So):
+            raise AssertionError(f"exact DP merge {k}: column dots differ from the oracle")
+        comp = np.where((a.stem[:, None] >= 0.5) == (b.stem[None, :] >= 0.5),
+                        np.float32(0.2), np.float32(0.0))
+        Mo, Xo, Yo = oracle_dp(So, comp, go, ge)
+        for name, got, want in (("M", M, Mo), ("X", X, Xo), ("Y", Y, Yo)):
+            g = got[k, : La + 1, : Lb + 1]
+            if not (np.array_equal(g > -1e29, want > -1e29)
+                    and np.array_equal(g[want > -1e29], want[want > -1e29])):
+                raise AssertionError(f"exact DP merge {k}: {name} differs from the oracle")
+        if list(ops[k]) != oracle_walk(Mo, Xo, Yo, La, Lb):
+            raise AssertionError(f"exact DP merge {k}: op codes differ from the oracle")
+        cells += (La + 1) * (Lb + 1)
+    return {"merges": len(A), "d": d, "lengths": [[int(x), int(y)] for x, y in zip(l1, l2)],
+            "cells_compared": cells, "bit_equal": True}
+
+
+def msa_slab_check(records, dev) -> dict:
+    """Check (b): the library run's first posterior batches (the CLI's
+    pairs, flags and library-mode gap open -4), on the card and on the
+    CPU, densified: max abs difference."""
+    pairs = msa.pairwise_pairs_to_compute(records, 2000)
+    lmax = max(r.emb.shape[0] for r in records)
+    k = min(20, _round_capacity(lmax))
+    W = max(lmax, k)
+    embs = np.zeros((len(records), W, records[0].emb.shape[1]), np.float32)
+    lens = np.array([r.emb.shape[0] for r in records])
+    for i, r in enumerate(records):
+        embs[i, : lens[i]] = r.emb
+    worst, n = 0.0, 0
+    for s0 in range(0, 64 * MSA_SLAB_BATCHES, 64):
+        chunk = pairs[s0:s0 + 64]
+        dense = []
+        for where in (dev, torch.device("cpu")):
+            kv, ki, _ = pairhmm._pair_posteriors_from_embs(
+                torch.from_numpy(embs).to(where), torch.from_numpy(lens).to(where),
+                torch.tensor([a for a, _ in chunk], device=where),
+                torch.tensor([b for _, b in chunk], device=where),
+                5.0, 0.0, -4.0, -0.5, 1e-4, False, k)
+            out = torch.zeros((len(chunk), W, W), dtype=torch.float64, device=where)
+            dense.append(out.scatter_add_(2, ki, kv.double()).cpu())
+        worst = max(worst, float((dense[0] - dense[1]).abs().max()))
+        n += len(chunk)
+    if not worst <= MSA_SLAB_TOL:
+        raise AssertionError(f"posterior slabs, card vs CPU: max abs {worst} > {MSA_SLAB_TOL}")
+    return {"pairs": n, "max_abs_err": worst, "tolerance": MSA_SLAB_TOL}
+
+
+def msa_path(tmp: str, dev) -> dict:
+    """``ginfinity-embed-msa`` on the N=200 / L<=300 family with the bench's
+    flags, in library mode (the default) and profile mode, with checks
+    (a)-(d); returns the phase's record."""
+    forward_windows.launches = forward_windows.bf16_launches = 0
+    dp_wavefront.launches = wavefront_plain.launches = 0
+    rec = {}
+    t0 = time.perf_counter()
+    src = msa_family_tsv(os.path.join(tmp, "family.tsv"), MSA_N, MSA_LMAX)
+    rec["family"] = {"records": MSA_N, "lmax": MSA_LMAX, "dim": MSA_DIM, "seed": MSA_SEED,
+                     "write_seconds": time.perf_counter() - t0,
+                     "tsv_bytes": os.path.getsize(src)}
+    t0 = time.perf_counter()
+    records = msa.load_tsv(src, "Name", "node_embeddings")
+    rec["tsv_parse_seconds"] = time.perf_counter() - t0
+    for r in records:
+        r.emb = msa._l2_normalize_rows(r.emb)
+
+    lib = os.path.join(tmp, "lib", "msa")
+    rec["library"] = msa_run(src, lib, [], str(dev))
+    check_msa_outputs(lib, records)
+    prof_src = src
+    if MSA_PROFILE_ROWS < MSA_N:
+        prof_src = os.path.join(tmp, "family_head.tsv")
+        with open(src) as f, open(prof_src, "w") as g:
+            for i, line in enumerate(f):
+                if i <= MSA_PROFILE_ROWS:
+                    g.write(line)
+    prof = os.path.join(tmp, "prof", "msa")
+    rec["profile"] = msa_run(prof_src, prof, ["--dp-score", "profile"], str(dev))
+    rec["profile"]["records"] = MSA_PROFILE_ROWS
+    check_msa_outputs(prof, records[:MSA_PROFILE_ROWS])
+
+    rec["exact_dp_vs_oracle"] = msa_exact_check(records, dev)
+    rec["slabs_card_vs_cpu"] = msa_slab_check(records, dev)
+
+    # check (c): a small family's alignments, card against the port's CPU run
+    small = msa_family_tsv(os.path.join(tmp, "small.tsv"), *MSA_SMALL)
+    same = {}
+    for mode in ("library", "profile"):
+        texts = []
+        for where in (str(dev), "cpu"):
+            out = os.path.join(tmp, f"small_{mode}_{where.replace(':', '')}", "msa")
+            msa_run(small, out, ["--dp-score", mode], where)
+            with open(f"{out}.aln.tsv", "rb") as f:
+                texts.append(f.read())
+        same[mode] = texts[0] == texts[1]
+    rec["small_family_aln_tsv_card_equals_cpu"] = same
+    if not all(same.values()):
+        raise AssertionError(f"small family .aln.tsv, card vs CPU: {same}")
+
+    # check (d): the MSA path launches neither kernel of the port
+    rec.update(window_kernel_launches=forward_windows.launches,
+               dp_kernel_launches=dp_wavefront.launches,
+               plain_dp_launches=wavefront_plain.launches)
+    if forward_windows.launches or forward_windows.bf16_launches or dp_wavefront.launches \
+            or wavefront_plain.launches:
+        raise AssertionError("the MSA path launched K1 or K2")
+    return rec
+
 
 @contextlib.contextmanager
 def phase(name: str, record: dict):
@@ -1306,11 +1586,28 @@ def main() -> int:
         norms = np.concatenate([np.linalg.norm(m, axis=1) for m in mats])
         if not (np.isfinite(norms).all() and np.abs(norms - 1).max() < 1e-4):
             raise AssertionError("node embeddings are not finite unit rows")
-        cpu = InferenceEngine.from_checkpoint(ckpt, device="cpu").node_embeddings(
-            preprocess_structures(rnas[:4]).graphs)
+        graphs = preprocess_structures(rnas[:4]).graphs
+        cpu = InferenceEngine.from_checkpoint(ckpt, device="cpu").node_embeddings(graphs)
         node_err = max(float(np.abs(c - m).max()) for c, m in zip(cpu, mats))
+        # the same rows in float64 on the CPU, and twice more on the card:
+        # the card's segment sums run in index order, so its rows repeat
+        batch = batch_graphs(graphs)
+        n_real = sum(g.n_nodes for g in graphs)
+        m64 = GINModel(cfg, params, state).to(torch.float64)
+        r64 = get_node_embeddings(cfg, m64.params, m64.state,
+                                  batch_as(batch, torch.float64)).numpy()[:n_real]
+        on_card = GINModel(cfg, params, state).to(dev)
+        reps = [on_card.get_node_embeddings(batch).cpu().numpy()[:n_real] for _ in range(2)]
+        rec.update(node_max_abs_err_vs_cpu=node_err,
+                   node_card_vs_float64=float(np.abs(np.concatenate(mats[:4]) - r64).max()),
+                   node_cpu_vs_float64=float(np.abs(np.concatenate(cpu) - r64).max()),
+                   node_card_repeats=bool(np.array_equal(reps[0], reps[1])))
         if node_err > TOL:
-            raise AssertionError(f"node embeddings vs the CPU: max abs {node_err} > {TOL}")
+            raise AssertionError(f"node embeddings vs the CPU: max abs {node_err} > {TOL} "
+                                 f"(card {rec['node_card_vs_float64']}, CPU "
+                                 f"{rec['node_cpu_vs_float64']} from float64)")
+        if not rec["node_card_repeats"]:
+            raise AssertionError("node embeddings on the card differ between two runs")
 
         with open(os.path.join(out_dir, "summary.tsv"), newline="") as f:
             summary = list(csv.DictReader(f, delimiter="\t"))
@@ -1349,7 +1646,6 @@ def main() -> int:
             raise AssertionError(f"align CLI vs plain wavefront: |score| {cli_err} > {DP_TOL}")
         dp_errs += [err, cli_err]
         rec.update(structures=ALIGN_RNAS, pairs=n_pairs, node_embed_seconds=node_embed_s,
-                   node_max_abs_err_vs_cpu=node_err,
                    align_batch_seconds=align_batch_s,
                    align_batch_pairs_per_s=n_pairs / align_batch_s,
                    dp_kernel_launches=dp_launches, dp_kernel_launches_batch_cli=batch_launches,
@@ -1370,6 +1666,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp, phase("bf16_path", {"card": card}) as rec:
         rec.update(bf16_path(tmp, cfg, main_params, main_state, structures, main_emb, dev))
         bf16_launches = rec["windows"]["bf16_kernel_launches"]
+
+    with tempfile.TemporaryDirectory() as tmp, phase("msa_path", {"card": card}) as rec:
+        rec.update(msa_path(tmp, dev))
 
     with phase("kernel_timing", {"card": card}) as rec:
         p, s = model.params, model.state
