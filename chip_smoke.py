@@ -44,7 +44,14 @@ the port's paths, the embedding paths with a seeded flagship checkpoint
   default) and in profile mode: pair-HMM posteriors, consistency and the
   progressive profile DP in torch on the card (no kernel of the port's
   own: it launches neither K1 nor K2, and the phase fails if either
-  counter moves).
+  counter moves);
+* the MSA tools (``msa_tools_path``, no kernel either): ``--refine-iters
+  32`` on the first 100 records of that family in library mode; a 24-record family refined in
+  both modes on the card and the CPU; ``msa_eval`` on a known-homology
+  family of 24 members (``make_family``, ancestor 300 nt) embedded with
+  the flagship, aligned in both modes and scored against the truth;
+  ``ginfinity-optimize-msa`` for 3 trials on it; ``ginfinity-prewarm``
+  in window mode (the kernel library) and ``--msa 24 120``.
 
 Each phase prints one JSON line with its name and seconds.  The
 ``main_path`` line also splits the warm window pass (upload, window
@@ -72,7 +79,15 @@ the exact profile DP on the card bit-equal (column dots, M/X/Y, op codes)
 to a numpy copy of the reference's float32 DP on 8 leaf merges of the
 family; two posterior batches' slabs on the card within 1e-5 of the
 port's CPU run; a 24-record family's ``.aln.tsv`` in both modes
-identical on the card and the CPU.  Before the last line it prints the card's name and power limit (as nvidia-smi
+identical on the card and the CPU.  ``msa_tools_path`` prints each
+part's seconds and holds them to checks: the refined SP score no lower
+than the progressive one and the outputs complete; the small family's
+refined ``.aln.tsv`` and refinement stats identical on the card and the
+CPU; msa_eval's node rows within 1e-4 of the CPU's (or no farther from
+float64 than twice the CPU's), the truth MSA at recall and precision 1.0,
+and a CPU rerun of the library-mode alignment identical; three finite
+optimizer trials and a complete ``best_params.json``; no K1 or K2
+launch.  Before the last line it prints the card's name and power limit (as nvidia-smi
 gives them) and one JSON line of per-kernel numbers; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero without
 that line, and so does a machine without a CUDA device.  Imports only
@@ -142,9 +157,13 @@ from ginfinity_tpu_torch.pipelines import (
     distances,
     embed,
     msa,
+    msa_eval,
     node_embed,
+    optimize_msa,
+    prewarm,
     windows,
 )
+from ginfinity_tpu_torch.pipelines.msa_eval import random_structure
 from ginfinity_tpu_torch.pipelines.align import cosine_similarity_matrix
 from ginfinity_tpu_torch.pipelines.engine import InferenceEngine, preprocess_structures
 from ginfinity_tpu_torch.pipelines.fast_windows import (
@@ -215,6 +234,14 @@ MSA_SMALL = (24, 120)      # the family of the card-vs-CPU .aln.tsv check
 MSA_EXACT_MERGES = 8       # leaf merges held to the numpy oracle DP
 MSA_SLAB_BATCHES = 2       # posterior batches re-run on the CPU
 MSA_SLAB_TOL = 1e-5        # their slabs, card vs CPU, max abs
+# the MSA tools: refinement on the N = 200 family and on the small one,
+# msa_eval's family (make_family's seed, members, ancestor length), the
+# optimizer's trials and the region (ancestor coordinates) it scores
+MSA_REFINE_ITERS, MSA_SMALL_REFINE_ITERS = 32, 8
+MSA_REFINE_ROWS = 100      # records of the refined run (cut to hold the smoke's time)
+MSA_EVAL_FAMILY = (13, 24, 300)
+OPT_TRIALS, OPT_REGION = 3, (50, 149)
+NODE_CPU_TOL = 1e-4        # node rows, card vs CPU (the align path's bar)
 
 FLAGSHIP = dict(hidden_dim=128, output_dim=128, gin_layers=6,
                 pooling_type="global_mean_pool", node_embed_norm="zscore_l2",
@@ -248,42 +275,6 @@ KERNEL_CASES = (
      GINConfig.create(**{**FLAGSHIP, "graph_encoding": "forgi"}), 120, None),
     ("flagship_L120_all_pulled", GINConfig.create(**FLAGSHIP), 120, ALL_PULLED),
 )
-
-
-def random_structure(rng: np.random.Generator, n: int, p_stem: float = 0.75,
-                     min_paired_frac: float = 0.3) -> str:
-    """Valid dot-bracket of length ``n``: nested stems with hairpin
-    loops of at least 3 nt and occasional multiloop branches, at least
-    ``min_paired_frac`` paired (the generator of
-    ``ginfinity_tpu/pipelines/msa_eval.py::random_structure``)."""
-
-    def draw() -> str:
-        out: list[str] = []
-
-        def gen(m: int, depth: int) -> None:
-            if m < 11 or rng.random() > p_stem * (0.9 ** depth):
-                out.append("." * m)
-                return
-            if m >= 26 and rng.random() < 0.35:
-                cut = int(rng.integers(11, m - 10))
-                gen(cut, depth)
-                gen(m - cut, depth)
-                return
-            h = int(rng.integers(2, min(6, (m - 5) // 2) + 1))
-            lead = int(rng.integers(0, min(4, m - 2 * h - 3) + 1))
-            tail = int(rng.integers(0, min(4, m - 2 * h - 3 - lead) + 1))
-            out.append("." * lead + "(" * h)
-            gen(m - 2 * h - lead - tail, depth + 1)
-            out.append(")" * h + "." * tail)
-
-        gen(n, 0)
-        return "".join(out)
-
-    for _ in range(100):
-        s = draw()
-        if (s.count("(") + s.count(")")) >= min_paired_frac * n:
-            return s
-    return s
 
 
 def corpus(rng: np.random.Generator, n_windows: int, L: int) -> list[str]:
@@ -1189,11 +1180,16 @@ def msa_run(src: str, out_prefix: str, extra: list, device: str) -> dict:
                    + MSA_FLAGS + extra)
     with open(f"{out_prefix}.diagnostics/run_meta.json") as f:
         meta = json.load(f)
-    return {"seconds": t, "pairs": meta["num_pairs"], "pairs_per_s": meta["num_pairs"] / t,
-            "stage_seconds": meta["stage_times_sec"],
-            "outside_stages_seconds": t - sum(meta["stage_times_sec"].values()),
-            "progressive_split_seconds": meta["progressive_split_sec"],
-            "progressive_rounds": meta["progressive_rounds"]}
+    refine = meta.get("refinement_split_sec", {})
+    rec = {"seconds": t, "pairs": meta["num_pairs"], "pairs_per_s": meta["num_pairs"] / t,
+           "stage_seconds": meta["stage_times_sec"],
+           "outside_stages_seconds": t - sum(meta["stage_times_sec"].values())
+           - refine.get("total_s", 0.0),
+           "progressive_split_seconds": meta["progressive_split_sec"],
+           "progressive_rounds": meta["progressive_rounds"]}
+    if "refinement" in meta:
+        rec.update(refinement=meta["refinement"], refinement_split_seconds=refine)
+    return rec
 
 
 def check_msa_outputs(out_prefix: str, records) -> None:
@@ -1297,10 +1293,22 @@ def msa_slab_check(records, dev) -> dict:
     return {"pairs": n, "max_abs_err": worst, "tolerance": MSA_SLAB_TOL}
 
 
+def head_tsv(src: str, dst: str, rows: int) -> str:
+    """``src``, or its header and first ``rows`` records written to ``dst``
+    when it holds more."""
+    if rows >= MSA_N:
+        return src
+    with open(src) as f, open(dst, "w") as g:
+        for i, line in enumerate(f):
+            if i <= rows:
+                g.write(line)
+    return dst
+
+
 def msa_path(tmp: str, dev) -> dict:
     """``ginfinity-embed-msa`` on the N=200 / L<=300 family with the bench's
     flags, in library mode (the default) and profile mode, with checks
-    (a)-(d); returns the phase's record."""
+    (a)-(d); returns the phase's record and the family's records."""
     forward_windows.launches = forward_windows.bf16_launches = 0
     dp_wavefront.launches = wavefront_plain.launches = 0
     rec = {}
@@ -1318,13 +1326,7 @@ def msa_path(tmp: str, dev) -> dict:
     lib = os.path.join(tmp, "lib", "msa")
     rec["library"] = msa_run(src, lib, [], str(dev))
     check_msa_outputs(lib, records)
-    prof_src = src
-    if MSA_PROFILE_ROWS < MSA_N:
-        prof_src = os.path.join(tmp, "family_head.tsv")
-        with open(src) as f, open(prof_src, "w") as g:
-            for i, line in enumerate(f):
-                if i <= MSA_PROFILE_ROWS:
-                    g.write(line)
+    prof_src = head_tsv(src, os.path.join(tmp, "family_head.tsv"), MSA_PROFILE_ROWS)
     prof = os.path.join(tmp, "prof", "msa")
     rec["profile"] = msa_run(prof_src, prof, ["--dp-score", "profile"], str(dev))
     rec["profile"]["records"] = MSA_PROFILE_ROWS
@@ -1355,6 +1357,222 @@ def msa_path(tmp: str, dev) -> dict:
     if forward_windows.launches or forward_windows.bf16_launches or dp_wavefront.launches \
             or wavefront_plain.launches:
         raise AssertionError("the MSA path launched K1 or K2")
+    return rec, records
+
+
+def truth_msa(members) -> dict:
+    """The true alignment of a family: one column per ancestor coordinate
+    and one per insertion (tests/test_msa_quality.py)."""
+    keys, per_member = set(), []
+    for mi, m in enumerate(members):
+        prev, serial, mkeys = -1, 0, []
+        for anc in m.posmap:
+            if anc >= 0:
+                prev, serial = int(anc), 0
+                k = (int(anc), 0, 0, 0)
+            else:
+                serial += 1
+                k = (prev, 1, mi, serial)
+            keys.add(k)
+            mkeys.append(k)
+        per_member.append(mkeys)
+    col_of = {k: i for i, k in enumerate(sorted(keys))}
+    out = {}
+    for m, mkeys in zip(members, per_member):
+        row = ["-"] * len(col_of)
+        for k in mkeys:
+            row[col_of[k]] = "x"
+        out[m.name] = "".join(row)
+    return out
+
+
+def node_rows(tsv: str) -> dict:
+    with open(tsv, newline="") as f:
+        return {r["Name"]: node_embed.parse_matrix(r["node_embeddings"])
+                for r in csv.DictReader(f, delimiter="\t")}
+
+
+def region_pair(members, lo: int, hi: int):
+    """Two members' spans of the positions with ancestor coordinates in
+    [lo, hi], as (name, start, end) with 1-based positions, and how many
+    offsets of the two spans are homologous (the same ancestor
+    coordinate): of the pairs whose spans are equally long (the optimizer
+    scores equal spans offset by offset), the one with the most."""
+    spans = []
+    for m in members:
+        pos = np.nonzero((m.posmap >= lo) & (m.posmap <= hi))[0]
+        spans.append((m.name, int(pos[0]), int(pos[-1])))
+    best = None
+    for a in range(len(spans)):
+        for b in range(a + 1, len(spans)):
+            (_, a0, a1), (_, b0, b1) = spans[a], spans[b]
+            if a1 - a0 != b1 - b0:
+                continue
+            pa, pb = members[a].posmap[a0:a1 + 1], members[b].posmap[b0:b1 + 1]
+            hom = int(((pa == pb) & (pa >= 0)).sum())
+            if best is None or hom > best[0]:
+                best = (hom, a, b)
+    if best is None:
+        raise AssertionError("no two members span the region equally")
+    hom, a, b = best
+    return [(n, s0 + 1, s1 + 1) for n, s0, s1 in (spans[a], spans[b])], hom
+
+
+def msa_tools_path(tmp: str, dev, records, cfg, params, state) -> dict:
+    """Refinement, msa_eval, the optimizer and prewarm on the card, with
+    checks (a)-(f); ``tmp`` holds msa_path's family TSVs."""
+    forward_windows.launches = forward_windows.bf16_launches = 0
+    dp_wavefront.launches = wavefront_plain.launches = 0
+    rec = {}
+    parts = rec["part_seconds"] = {}
+    t_part = time.perf_counter()
+
+    # (a) refinement at full width: the family's first MSA_REFINE_ROWS
+    # records in library mode
+    out = os.path.join(tmp, "refine", "msa")
+    src = head_tsv(os.path.join(tmp, "family.tsv"), os.path.join(tmp, "family_refine.tsv"),
+                   MSA_REFINE_ROWS)
+    rec["refine_full"] = r = msa_run(src, out, ["--refine-iters", str(MSA_REFINE_ITERS)],
+                                     str(dev))
+    r["records"] = min(MSA_REFINE_ROWS, MSA_N)
+    check_msa_outputs(out, records[:MSA_REFINE_ROWS])
+    if not r["refinement"]["sp_final"] >= r["refinement"]["sp_initial"] - 1e-6:
+        raise AssertionError(f"refinement lowered the SP score: {r['refinement']}")
+
+    parts["a_refine_full"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+
+    # (b) the small family refined in both modes, card against CPU
+    small = os.path.join(tmp, "small.tsv")
+    rec["refine_small"] = {}
+    for mode in ("library", "profile"):
+        runs = []
+        for where in (str(dev), "cpu"):
+            out = os.path.join(tmp, f"refine_small_{mode}_{where.replace(':', '')}", "msa")
+            runs.append(msa_run(small, out, ["--dp-score", mode, "--refine-iters",
+                                             str(MSA_SMALL_REFINE_ITERS)], where))
+            with open(f"{out}.aln.tsv", "rb") as f:
+                runs[-1]["aln"] = f.read()
+        same = runs[0].pop("aln") == runs[1].pop("aln")
+        rec["refine_small"][mode] = {
+            "card": runs[0], "cpu_seconds": runs[1]["seconds"], "aln_tsv_card_equals_cpu": same,
+            "refinement_card_equals_cpu": runs[0]["refinement"] == runs[1]["refinement"]}
+        if not (same and runs[0]["refinement"] == runs[1]["refinement"]):
+            raise AssertionError(f"small family refined ({mode}), card vs CPU: "
+                                 f"{runs[0]['refinement']} vs {runs[1]['refinement']}")
+
+    parts["b_refine_small_card_cpu"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+
+    # (c) msa_eval: a known-homology family embedded with the flagship on
+    # the card and the CPU, aligned in both modes, scored against the truth
+    seed, n_seqs, anc_len = MSA_EVAL_FAMILY
+    members = msa_eval.make_family(seed, n_seqs=n_seqs, anc_len=anc_len)
+    ckpt = os.path.join(tmp, "flagship.pth")
+    export_torch_checkpoint(ckpt, cfg, params, state)
+    tsv = {}
+    ev = rec["msa_eval"] = {"family": {"seed": seed, "members": n_seqs, "anc_len": anc_len,
+                                       "lengths": [len(m.structure) for m in members]}}
+    for where in (str(dev), "cpu"):
+        tsv[where] = os.path.join(tmp, f"eval_{where.replace(':', '')}.tsv")
+        t0 = time.perf_counter()
+        msa_eval.family_to_tsv(members, ckpt, tsv[where], device=where)
+        ev[f"family_to_tsv_seconds_{'cpu' if where == 'cpu' else 'card'}"] = \
+            time.perf_counter() - t0
+    card_rows, cpu_rows = node_rows(tsv[str(dev)]), node_rows(tsv["cpu"])
+    err = max(float(np.abs(card_rows[m.name] - cpu_rows[m.name]).max()) for m in members)
+    ev["node_max_abs_err_vs_cpu"] = err
+    if err > NODE_CPU_TOL:
+        # F3's bar: no farther from a float64 run than twice the CPU's rows
+        graphs = preprocess_structures([m.structure for m in members],
+                                       [m.sequence for m in members]).graphs
+        m64 = GINModel(cfg, params, state).to(torch.float64)
+        x64 = get_node_embeddings(cfg, m64.params, m64.state,
+                                  batch_as(batch_graphs(graphs), torch.float64)).numpy()
+        offs = np.cumsum([0] + [g.n_nodes for g in graphs])
+        ref = {m.name: x64[a:b] for m, a, b in zip(members, offs[:-1], offs[1:])}
+        card64 = max(float(np.abs(card_rows[k] - ref[k]).max()) for k in ref)
+        cpu64 = max(float(np.abs(cpu_rows[k] - ref[k]).max()) for k in ref)
+        ev.update(node_card_vs_float64=card64, node_cpu_vs_float64=cpu64)
+        if card64 > 2 * cpu64 + 1e-6:
+            raise AssertionError(f"msa_eval node rows: card {err} from the CPU, {card64} "
+                                 f"from float64 (CPU {cpu64})")
+    truth = msa_eval.sp_scores(truth_msa(members), members)
+    ev["truth"] = truth
+    if not truth["sp_recall"] == truth["sp_precision"] == 1.0:
+        raise AssertionError(f"the truth MSA scores {truth}")
+    for mode in ("profile", "library"):
+        prefix = os.path.join(tmp, f"eval_{mode}", "msa")
+        with contextlib.redirect_stdout(io.StringIO()):
+            sec = msa_eval.run_repo_msa(tsv[str(dev)], prefix, {}, dp_score=mode, device=dev)
+        torch.cuda.synchronize()
+        ev[mode] = {"seconds": sec,
+                    **msa_eval.sp_scores(msa_eval.load_aln_tsv(prefix + ".aln.tsv"), members)}
+    prefix = os.path.join(tmp, "eval_library_cpu", "msa")
+    with contextlib.redirect_stdout(io.StringIO()):
+        ev["library_cpu_seconds"] = msa_eval.run_repo_msa(tsv[str(dev)], prefix, {},
+                                                          dp_score="library", device="cpu")
+    with open(prefix + ".aln.tsv", "rb") as f, \
+            open(os.path.join(tmp, "eval_library", "msa.aln.tsv"), "rb") as g:
+        ev["library_aln_tsv_cpu_equals_card"] = f.read() == g.read()
+    if not ev["library_aln_tsv_cpu_equals_card"]:
+        raise AssertionError("msa_eval family: the CPU rerun wrote another .aln.tsv")
+
+    parts["c_msa_eval"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+
+    # (d) the optimizer on (c)'s TSV, scored on a region of known homology
+    ((na, a0, a1), (nb, b0, b1)), hom = region_pair(members, *OPT_REGION)
+    regions = os.path.join(tmp, "regions.tsv")
+    with open(regions, "w") as f:
+        f.write(f"Name\tStart\tEnd\n{na}\t{a0}\t{a1}\n{nb}\t{b0}\t{b1}\n")
+    od = os.path.join(tmp, "opt")
+    t = quiet_main(optimize_msa.main, [
+        "--input", tsv[str(dev)], "--regions-tsv", regions, "--name-a", na, "--name-b", nb,
+        "--n-trials", str(OPT_TRIALS), "--seed", "42", "--topk", "20",
+        "--consistency-rounds", "1", "--outdir", od, "--study-name", "smoke",
+        "--device", str(dev)])
+    with open(os.path.join(od, "smoke", "trials.csv"), newline="") as f:
+        trials = list(csv.DictReader(f))
+    with open(os.path.join(od, "smoke", "best_params.json")) as f:
+        best = json.load(f)
+    values = [float(r["value"]) for r in trials]
+    secs = []
+    for k in range(len(trials)):
+        with open(os.path.join(od, "smoke", f"trial_rs{k}", "trial_meta.json")) as f:
+            secs.append(json.load(f)["elapsed_sec"])
+    rec["optimize"] = {"seconds": t, "region": [[na, a0, a1], [nb, b0, b1]],
+                       "homologous_offsets": hom, "true_alignment_score": 2 * hom - (a1 - a0 + 1),
+                       "trials": [{"refine_iters": int(r["refine_iters"]), "value": v,
+                                   "seconds": sc} for r, v, sc in zip(trials, values, secs)],
+                       "best_params": best}
+    if len(trials) != OPT_TRIALS or not all(np.isfinite(v) and v > -1e9 for v in values) \
+            or set(best) != set(optimize_msa.PARAM_KEYS):
+        raise AssertionError(f"optimizer: trials {values}, best_params {best}")
+
+    parts["d_optimize"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+
+    # (e) prewarm: the library build (window mode) and one MSA bucket
+    corpus_csv = write_csv(os.path.join(tmp, "prewarm.csv"), "rid",
+                           [m.structure for m in members])
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        res = prewarm.main(["--input", corpus_csv, "--model-path", ckpt, "--window-size",
+                            str(WINDOW), "--keep-paired-neighbors"])
+    rec["prewarm_windows"] = {"seconds": time.perf_counter() - t0,
+                              "build_seconds": res["build_seconds"], "groups": res["groups"]}
+    rec["prewarm_msa_seconds"] = quiet_main(prewarm.main, ["--msa", *map(str, MSA_SMALL)])
+
+    parts["e_prewarm"] = time.perf_counter() - t_part
+
+    # (f) none of it launches a kernel of the port
+    rec.update(window_kernel_launches=forward_windows.launches,
+               dp_kernel_launches=dp_wavefront.launches,
+               plain_dp_launches=wavefront_plain.launches)
+    if forward_windows.launches or forward_windows.bf16_launches or dp_wavefront.launches \
+            or wavefront_plain.launches:
+        raise AssertionError("the MSA tools launched K1 or K2")
     return rec
 
 
@@ -1667,8 +1885,12 @@ def main() -> int:
         rec.update(bf16_path(tmp, cfg, main_params, main_state, structures, main_emb, dev))
         bf16_launches = rec["windows"]["bf16_kernel_launches"]
 
-    with tempfile.TemporaryDirectory() as tmp, phase("msa_path", {"card": card}) as rec:
-        rec.update(msa_path(tmp, dev))
+    with tempfile.TemporaryDirectory() as tmp:
+        with phase("msa_path", {"card": card}) as rec:
+            msa_rec, msa_records = msa_path(tmp, dev)
+            rec.update(msa_rec)
+        with phase("msa_tools_path", {"card": card}) as rec:
+            rec.update(msa_tools_path(tmp, dev, msa_records, cfg, main_params, main_state))
 
     with phase("kernel_timing", {"card": card}) as rec:
         p, s = model.params, model.state

@@ -15,13 +15,16 @@ the same flags (plus ``--device``), stages and output files.
    the device: library mode scores columns by the consistency-transformed
    posteriors (the host scorer) and runs the fast DP; profile mode runs
    the reference-exact DP on the column embeddings
-9. FASTA / Stockholm / TSV outputs and diagnostics
+9. ``--refine-iters``: split-and-realign refinement (leave-one-out, the
+   guide tree's partitions, then seeded random splits), scored on the
+   host, each realign one single-merge DP on the device
+10. FASTA / Stockholm / TSV outputs and diagnostics
 
 This is the JAX package's host-driven levelized path (its
 ``GINFINITY_MSA_POOL=0``), which writes the same files as its device
-pools; ``GINFINITY_MSA_POOL`` is accepted and ignored.  The pools
-(``ops/profile_pool.py``, ``ops/library_pool.py``) and
-``--refine-iters`` are not ported (ROADMAP queue 1, items 9c and 9c');
+pools and its fused refinement scorer; ``GINFINITY_MSA_POOL`` is
+accepted and ignored.  The pools (``ops/profile_pool.py``,
+``ops/library_pool.py``) are not ported (ROADMAP queue 1, item 9c);
 ``--data-parallel`` over several cards is item 11.
 """
 
@@ -46,7 +49,7 @@ from ginfinity_tpu_torch.ops.pairhmm import (
     profile_align_batch_ops_exact,
 )
 from ginfinity_tpu_torch.utils.device import disable_tf32, resolve_device
-from ginfinity_tpu_torch.utils.io import read_table
+from ginfinity_tpu_torch.utils.io import cell_text, read_table
 
 _F64 = torch.float64
 
@@ -115,11 +118,6 @@ def _pairs_to_dotbracket(pairs: list[int]) -> str:
     )
 
 
-def _cell_text(v) -> str:
-    """A typed cell as ``str`` of its pandas value (missing -> ``nan``)."""
-    return "nan" if v is None else str(v)
-
-
 def load_tsv(path, name_col, embeds_col, dotbracket_col=None, paired_col=None,
              base_embeds_col=None) -> list[SequenceRecord]:
     table = read_table(path, sep="\t")
@@ -127,7 +125,7 @@ def load_tsv(path, name_col, embeds_col, dotbracket_col=None, paired_col=None,
         raise ValueError(f"Missing required columns: {name_col}, {embeds_col}")
     records = []
     for idx, row in enumerate(table.rows):
-        name = _cell_text(row[name_col])
+        name = cell_text(row[name_col])
         emb = _parse_matrix_cell(row[embeds_col])
         if emb is None:
             print(f"[WARN] Row {idx} ('{name}') has invalid embeddings; skipping.")
@@ -740,6 +738,210 @@ def msa_from_tree(tree, seq_profiles, gap_open, gap_extend, seq_weight=0.0,
 
 
 # ==========================================================================
+# Iterative refinement: split and realign
+#
+# Each iteration splits the members in two, extracts both sub-alignments
+# (all-gap columns dropped), realigns them with the profile DP and keeps
+# the result when the sum-of-pairs score improves.  The scores and the
+# sub-alignments are host numpy in the JAX package's exact op order: an
+# acceptance is decided on a float difference, and one flipped ulp would
+# change every later iteration.
+
+
+def _column_positions(profile: Profile) -> tuple[np.ndarray, np.ndarray]:
+    """Per (member, column): the member's residue index, -1 at gaps.
+    Returns (members array, pos [n_members, n_cols])."""
+    members = np.asarray(profile.member_indices)
+    n_cols = len(profile.stem)
+    pos = np.full((members.size, n_cols), -1, np.int64)
+    for r, idx in enumerate(profile.member_indices):
+        chars = np.asarray(profile.aligned_chars[idx])[:n_cols]
+        present = chars != _GAP
+        pos[r, : chars.size][present] = np.cumsum(present)[present] - 1
+    return members, pos
+
+
+def sp_score(profile: Profile, seq_profiles: list[Profile],
+             beta_struct: float = 0.2) -> float:
+    """Sum-of-pairs score over the original per-sequence embeddings: for
+    every column and every pair of members both present, dot(e_i, e_j)
+    plus ``beta_struct`` when their stem flags agree (the profile DP's
+    scoring).  Computed with the sum-of-squares identity, no pair loop."""
+    members, pos = _column_positions(profile)
+    if members.size < 2 or pos.shape[1] == 0:
+        return 0.0
+    d = seq_profiles[int(members[0])].mu_struct.shape[1]
+    present = pos >= 0
+    E = np.zeros((members.size, pos.shape[1], d), np.float32)
+    stem = np.zeros_like(pos, np.float32)
+    for r, idx in enumerate(members):
+        sp = seq_profiles[int(idx)]
+        p = pos[r][present[r]]
+        E[r, present[r]] = sp.mu_struct[p]
+        stem[r][present[r]] = sp.stem[p]
+    # sum over pairs of dots = (||sum||^2 - sum ||.||^2) / 2, per column
+    s = E.sum(axis=0)  # [C, d]
+    dot_total = 0.5 * float((s * s).sum() - (E * E).sum())
+    n_stem = ((stem >= 0.5) & present).sum(axis=0).astype(np.float64)
+    n_un = ((stem < 0.5) & present).sum(axis=0).astype(np.float64)
+    agree_pairs = (n_stem * (n_stem - 1) + n_un * (n_un - 1)) / 2.0
+    return dot_total + beta_struct * float(agree_pairs.sum())
+
+
+def extract_subprofile(profile: Profile, members: list[int],
+                       seq_profiles: list[Profile]) -> Profile:
+    """Sub-alignment restricted to ``members``: columns where every member
+    is gapped dropped, column means and stems rebuilt from the original
+    per-sequence embeddings."""
+    all_members, pos = _column_positions(profile)
+    rows = [list(all_members).index(m) for m in members]
+    sub = pos[rows]
+    keep = (sub >= 0).any(axis=0)
+    sub = sub[:, keep]
+    n_cols = sub.shape[1]
+    d = seq_profiles[int(members[0])].mu_struct.shape[1]
+    base_dim = next(
+        (seq_profiles[m].mu_base.shape[1] for m in members
+         if seq_profiles[m].mu_base is not None), 0
+    )
+    mu_s = np.zeros((n_cols, d), np.float32)
+    mu_b = np.zeros((n_cols, base_dim), np.float32) if base_dim else None
+    stem_acc = np.zeros(n_cols, np.float32)
+    cnt = np.zeros(n_cols, np.float32)
+    aligned = {}
+    for r, m in enumerate(members):
+        spf = seq_profiles[int(m)]
+        pres = sub[r] >= 0
+        p = sub[r][pres]
+        mu_s[pres] += spf.mu_struct[p]
+        if base_dim and spf.mu_base is not None:
+            mu_b[pres] += spf.mu_base[p]
+        stem_acc[pres] += spf.stem[p]
+        cnt[pres] += 1.0
+        src = np.asarray(profile.aligned_chars[m])
+        if src.size < keep.size:
+            src = np.concatenate([src, np.full(keep.size - src.size, _GAP, np.uint8)])
+        aligned[m] = src[: keep.size][keep]
+    mu_s = mu_s / np.maximum(np.linalg.norm(mu_s, axis=1, keepdims=True), 1e-8)
+    if mu_b is not None:
+        mu_b = mu_b / np.maximum(np.linalg.norm(mu_b, axis=1, keepdims=True), 1e-8)
+    stem = stem_acc / np.maximum(cnt, 1.0)
+    return Profile(mu_s, mu_b, stem, list(members), aligned)
+
+
+def tree_partitions(tree, n: int) -> list[frozenset]:
+    """Member sets of the guide tree's internal edges (sizes 2..n-2),
+    deduplicated with their complements: the MUSCLE stage-3 restricted
+    partitions (singletons are the refinement's leave-one-out sweep).
+    Shallow subtrees, nearest the root merge, come first."""
+    sets: list[frozenset] = []
+
+    def walk(node) -> frozenset:
+        if isinstance(node, int):
+            return frozenset((node,))
+        s = walk(node[0]) | walk(node[1])
+        if 2 <= len(s) <= n - 2:
+            sets.append(s)
+        return s
+
+    walk(tree)
+    seen: set[frozenset] = set()
+    out: list[frozenset] = []
+    for s in reversed(sets):  # reversed post-order: root-adjacent first
+        comp = frozenset(range(n)) - s
+        key = min(s, comp, key=lambda x: tuple(sorted(x)))
+        if key in seen:
+            continue
+        seen.add(key)
+        out.append(s)
+    return out
+
+
+def iterative_refinement(
+    aln: Profile,
+    seq_profiles: list[Profile],
+    iters: int,
+    rng: np.random.Generator,
+    gap_open: float,
+    gap_extend: float,
+    seq_weight: float = 0.0,
+    scorer=None,
+    partitions: list[frozenset] | None = None,
+    min_gain: float = 0.0,
+    device=None,
+    split: Optional[dict] = None,
+) -> tuple[Profile, dict]:
+    """Split-and-realign refinement; returns (best alignment, stats).
+
+    Schedule: a leave-one-out sweep over every member, then the given
+    ``partitions`` (:func:`tree_partitions`), then random binary splits
+    (``rng.integers`` for the size, then ``rng.choice``).  Each realign is
+    one single-merge DP on ``device``: the fast DP on ``scorer(A, B)``
+    (library mode), else :func:`merge_profiles`.  The JAX package's fused
+    device scorer and DP (``merge_ops_fn``) writes the same alignments and
+    has no counterpart here.
+
+    ``min_gain``: a realign is kept only when it improves the score by
+    more than ``min_gain * max(1, |current score|)``; 0 keeps any
+    improvement.  ``split``, when given, receives the host clock's
+    seconds of extraction, scoring, DP, merging and ``sp_score``."""
+    t = dict(extract_s=0.0, score_s=0.0, dp_s=0.0, merge_s=0.0, sp_score_s=0.0)
+    t0 = time.perf_counter()
+    best = aln
+    best_score = sp_score(best, seq_profiles)
+    t["sp_score_s"] += time.perf_counter() - t0
+    stats = {"sp_initial": best_score, "accepted": 0, "iters": max(0, int(iters))}
+    members = list(aln.member_indices)
+    if iters <= 0 or len(members) < 3:
+        stats["sp_final"] = best_score
+        if split is not None:
+            split.update(t)
+        return best, stats
+    parts = partitions or []
+    for it in range(int(iters)):
+        if it < len(members):
+            side = {members[it]}
+        elif it - len(members) < len(parts):
+            side = set(parts[it - len(members)])
+        else:
+            k = int(rng.integers(1, len(members)))
+            side = set(rng.choice(np.asarray(members), size=k, replace=False).tolist())
+        part_a = [m for m in best.member_indices if m in side]
+        part_b = [m for m in best.member_indices if m not in side]
+        if not part_a or not part_b:
+            continue
+        t0 = time.perf_counter()
+        A = extract_subprofile(best, part_a, seq_profiles)
+        B = extract_subprofile(best, part_b, seq_profiles)
+        t1 = time.perf_counter()
+        if scorer is not None:
+            S = scorer(A, B)
+            t2 = time.perf_counter()
+            ops = profile_align_batch_ops([S], gap_open, gap_extend, device=device)[0]
+            t3 = time.perf_counter()
+            cand = _merge_from_ops(A, B, ops)
+        else:
+            t2 = time.perf_counter()
+            cand = merge_profiles(A, B, gap_open, gap_extend, seq_weight, device=device)
+            t3 = time.perf_counter()
+        t4 = time.perf_counter()
+        sc = sp_score(cand, seq_profiles)
+        t5 = time.perf_counter()
+        t["extract_s"] += t1 - t0
+        t["score_s"] += t2 - t1
+        t["dp_s"] += t3 - t2
+        t["merge_s"] += t4 - t3
+        t["sp_score_s"] += t5 - t4
+        if sc - best_score > min_gain * max(1.0, abs(best_score)):
+            best, best_score = cand, sc
+            stats["accepted"] += 1
+    stats["sp_final"] = best_score
+    if split is not None:
+        split.update(t)
+    return best, stats
+
+
+# ==========================================================================
 # Outputs
 
 
@@ -854,7 +1056,8 @@ def build_parser():
                          "to 0: posterior scores already price gaps).")
     ap.add_argument("--dp-gap-extend", type=float, default=None)
     ap.add_argument("--refine-iters", type=int, default=0,
-                    help="Not ported yet: values above 0 raise.")
+                    help="Split-and-realign refinement iterations after the "
+                         "progressive alignment (0: none).")
     ap.add_argument("--refine-min-gain", type=float, default=0.002)
     ap.add_argument("--num-workers", type=int, default=4, help="Reference CLI compatibility.")
     ap.add_argument("--max-pairs", type=int, default=2000)
@@ -875,10 +1078,6 @@ def main(argv=None):
     if args.topk < 1:
         raise SystemExit("--topk must be >= 1")
     device = resolve_device(args.device)
-    if args.refine_iters > 0:
-        raise NotImplementedError(
-            "--refine-iters is not ported yet (ROADMAP queue 1, item 9c', refinement)"
-        )
     if args.data_parallel and device.type == "cuda" and torch.cuda.device_count() > 1:
         raise NotImplementedError(
             "--data-parallel over several cards is not ported yet (ROADMAP queue 1, item 11)"
@@ -1072,6 +1271,18 @@ def main(argv=None):
     aln = msa_from_tree(tree, profiles, dp_go, dp_ge, seq_weight=float(args.seq_weight),
                         scorer=scorer, device=device, split=split)
     t_stage = stage_done("progressive_alignment", t_stage)
+    refine_stats = None
+    refine_split: dict = {}
+    if args.refine_iters > 0 and N >= 3:
+        print(f"Refining for {args.refine_iters} iteration(s)...")
+        t0 = time.perf_counter()
+        aln, refine_stats = iterative_refinement(
+            aln, profiles, args.refine_iters, np.random.default_rng(args.seed),
+            dp_go, dp_ge, seq_weight=float(args.seq_weight), scorer=scorer,
+            partitions=tree_partitions(tree, N), min_gain=float(args.refine_min_gain),
+            device=device, split=refine_split,
+        )
+        refine_split["total_s"] = time.perf_counter() - t0
 
     diagnostics: dict[str, Any] = {
         "expected_scores": expected_scores.tolist(),
@@ -1097,8 +1308,12 @@ def main(argv=None):
         "progressive_split_sec": {k_: v for k_, v in split.items() if k_ != "rounds"},
         "progressive_rounds": len(split.get("rounds", [])),
     }
+    if refine_split:
+        diagnostics["refinement_split_sec"] = refine_split
     if args.plot_diagnostics and heatmaps:
         diagnostics["posteriors_heatmaps"] = heatmaps
+    if refine_stats is not None:
+        diagnostics["refinement"] = refine_stats
     if args.use_center is not None and trim_bounds is not None:
         diagnostics["use_center_fraction"] = float(args.use_center)
         diagnostics["center_trim_bounds"] = [[int(s_), int(e)] for s_, e in trim_bounds]

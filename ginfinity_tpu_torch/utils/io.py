@@ -69,6 +69,12 @@ class Table:
         return [r[name] for r in self.rows]
 
 
+def cell_text(v) -> str:
+    """A typed cell as ``str`` of its pandas value (missing -> ``nan``), as
+    ``Series.astype(str)`` gives it."""
+    return "nan" if v is None else str(v)
+
+
 def read_table(path: str, sep: str | None = None) -> Table:
     """Read a CSV, or a TSV when the name ends in ``.tsv`` (or with the
     separator ``sep``); blank lines are skipped."""

@@ -60,11 +60,20 @@ def test_entry_points_refuse_the_cpu_unasked(monkeypatch, tmp_path):
 
     from ginfinity_tpu_torch.models.gine import GINConfig, GINModel, init_params
     from ginfinity_tpu_torch.parallel.search import TopKSearcher
-    from ginfinity_tpu_torch.pipelines import distances, embed
+    from ginfinity_tpu_torch.pipelines import (
+        base_embed,
+        distances,
+        embed,
+        msa_eval,
+        optimize_msa,
+        prewarm,
+    )
     from ginfinity_tpu_torch.pipelines.fast_windows import embed_corpus_windows
     from ginfinity_tpu_torch.utils.device import resolve_device
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    seqs = tmp_path / "seqs.csv"
+    seqs.write_text("id,sequence\nx,ACGU\n")
     cfg = GINConfig.create(hidden_dim=128, output_dim=128, gin_layers=1)
     model = GINModel(cfg, *init_params(torch.Generator().manual_seed(0), cfg))
     for call in (
@@ -80,6 +89,14 @@ def test_entry_points_refuse_the_cpu_unasked(monkeypatch, tmp_path):
         lambda: distances.pair_distances(np.zeros((2, 4), np.float32), np.array([0]),
                                          np.array([1])),
         lambda: TopKSearcher(np.zeros((4, 8), np.float32)),
+        lambda: msa_eval.main(["--model-path", "m.pth", "--workdir", str(tmp_path / "w")]),
+        lambda: msa_eval.family_to_tsv(msa_eval.make_family(0, 2, 20), "m.pth",
+                                       str(tmp_path / "f.tsv")),
+        lambda: optimize_msa.main(["--input", "x.tsv", "--regions-tsv", "r.tsv", "--name-a",
+                                   "a", "--name-b", "b", "--outdir", str(tmp_path / "o")]),
+        lambda: base_embed.main(["--input", str(seqs), "--output", str(tmp_path / "b.tsv"),
+                                 "--id-column", "id"]),
+        lambda: prewarm.main(["--msa", "3", "10"]),
     ):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()

@@ -562,12 +562,14 @@ def test_cli_matches_jax(case, tmp_path, monkeypatch):
 
 
 def test_cli_refusals(tmp_path):
-    """``--refine-iters 1`` raises naming its queue item; ``--topk 0``
-    exits as JAX's does; the card is never used unasked."""
+    """``--refine-iters 1`` (ported since) runs and writes its
+    ``refinement`` stats; ``--topk 0`` exits as JAX's does; the card is
+    never used unasked."""
     src = _family_tsv(tmp_path / "f.tsv", 3, 10)
     base = ["--input", src, "--out-prefix", str(tmp_path / "o" / "msa"), "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="9c'"):
-        tmsa.main(base + ["--refine-iters", "1"])
+    tmsa.main(base + ["--refine-iters", "1"])
+    with open(tmp_path / "o" / "msa.diagnostics" / "run_meta.json") as f:
+        assert json.load(f)["refinement"]["iters"] == 1
     with pytest.raises(SystemExit, match="--topk must be >= 1"):
         tmsa.main(base + ["--topk", "0"])
     if not torch.cuda.is_available():
