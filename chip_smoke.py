@@ -51,7 +51,23 @@ the port's paths, the embedding paths with a seeded flagship checkpoint
   family of 24 members (``make_family``, ancestor 300 nt) embedded with
   the flagship, aligned in both modes and scored against the truth;
   ``ginfinity-optimize-msa`` for 3 trials on it; ``ginfinity-prewarm``
-  in window mode (the kernel library) and ``--msa 24 120``.
+  in window mode (the kernel library) and ``--msa 24 120``;
+* training, ``ginfinity-train`` at the packaged width (6 x GINE-128,
+  GraphNorm, ``zscore_l2``, nodes normalised before the pool, dropout
+  0.05) and ``train_eval``'s probes (``train_path``): (a) one train step
+  per mode (triplet, regression, alignment, and regression with batch
+  norm) at dropout 0 on the card and the CPU, (b) the same step twice on
+  the card at dropout 0.05 from one generator seed, bit-equal, (c)
+  ``train_packaged_architecture`` on ``generate_alignment_training_data``'s
+  120 families, two rounds from a seeded checkpoint, the loss lower at
+  the end, and one more epoch split into host batch assembly and the
+  step's forward, backward and Adam from CUDA events, (d) both probes of
+  the trained and the starting checkpoint on the 24 held-out families
+  (K2 on the warp route, no K1), (e) triplet and regression through the
+  CLI with ``--fit-node-stats``, (f) a run stopped in epoch 2 and resumed
+  from its ``--save-every 1`` checkpoint, bit-equal to the straight run,
+  (g) the flagship architecture (4 layers 256 -> 512 x 3, forgi) for one
+  epoch.
 
 Each phase prints one JSON line with its name and seconds.  The
 ``main_path`` line also splits the warm window pass (upload, window
@@ -96,6 +112,7 @@ the port, torch, numpy and the standard library.
 
 from __future__ import annotations
 
+import builtins
 import contextlib
 import csv
 import dataclasses
@@ -119,6 +136,7 @@ from ginfinity_tpu_torch.models.checkpoint import export_torch_checkpoint, load_
 from ginfinity_tpu_torch.models.gine import (
     GINConfig,
     GINModel,
+    _leaves,
     bf16_matmul_route,
     get_node_embeddings,
     init_params,
@@ -161,6 +179,7 @@ from ginfinity_tpu_torch.pipelines import (
     node_embed,
     optimize_msa,
     prewarm,
+    train_eval,
     windows,
 )
 from ginfinity_tpu_torch.pipelines.msa_eval import random_structure
@@ -176,6 +195,18 @@ from ginfinity_tpu_torch.pipelines.fast_windows import (
     embed_corpus_windows,
 )
 from ginfinity_tpu_torch.graphs.batching import _round_capacity, batch_graphs, bucket_sizes
+from ginfinity_tpu_torch.training import data as train_data
+from ginfinity_tpu_torch.training import train_cli
+from ginfinity_tpu_torch.training.losses import AlignmentLossConfig
+from ginfinity_tpu_torch.training.train import (
+    EarlyStopping,
+    TrainState,
+    alignment_loss_fn,
+    make_train_step,
+    regression_loss_fn,
+    tree_map,
+    triplet_loss_fn,
+)
 from ginfinity_tpu_torch.utils.device import disable_tf32
 from ginfinity_tpu_torch.utils.io import read_table, write_tsv
 
@@ -242,6 +273,14 @@ MSA_REFINE_ROWS = 100      # records of the refined run (cut to hold the smoke's
 MSA_EVAL_FAMILY = (13, 24, 300)
 OPT_TRIALS, OPT_REGION = 3, (50, 149)
 NODE_CPU_TOL = 1e-4        # node rows, card vs CPU (the align path's bar)
+# train_path: one train step, card vs CPU (loss relative, gradients scaled
+# by max(1, max|g|)); the training run's schedule, two rounds from a
+# seeded checkpoint; the flagship's; the triplet/regression rows of (e), (f)
+TRAIN_TOL = 1e-5
+TRAIN_ROUNDS = [{"lr": 5e-4, "decay_rate": 0.98, "patience": 10, "num_epochs": 3},
+                {"lr": 1e-4, "decay_rate": 0.95, "patience": 10, "num_epochs": 2}]
+FLAGSHIP_ROUNDS = [{"lr": 5e-4, "decay_rate": 0.98, "patience": 10, "num_epochs": 1}]
+TRAIN_PAIR_ROWS = 96
 
 FLAGSHIP = dict(hidden_dim=128, output_dim=128, gin_layers=6,
                 pooling_type="global_mean_pool", node_embed_norm="zscore_l2",
@@ -802,9 +841,16 @@ def quiet_main(fn, argv) -> float:
 
 
 def batch_as(batch, dtype):
-    """``batch`` with its float tensors in ``dtype``."""
-    return dataclasses.replace(batch, **{k: getattr(batch, k).to(dtype) for k in (
-        "node_feat", "node_mask", "base_mask", "edge_attr", "edge_mask")})
+    """``batch`` (a graph batch, or a train batch of them) with its float
+    tensors in ``dtype``."""
+    out = {}
+    for f in dataclasses.fields(batch):
+        v = getattr(batch, f.name)
+        if dataclasses.is_dataclass(v):
+            out[f.name] = batch_as(v, dtype)
+        elif isinstance(v, torch.Tensor) and v.is_floating_point():
+            out[f.name] = v.to(dtype)
+    return dataclasses.replace(batch, **out)
 
 
 def check_err(what: str, err: float, tol: float = TOL) -> float:
@@ -1576,6 +1622,368 @@ def msa_tools_path(tmp: str, dev, records, cfg, params, state) -> dict:
     return rec
 
 
+# --------------------------------------------------------------------------
+# train_path: ginfinity-train and the train_eval probes
+# --------------------------------------------------------------------------
+
+
+def train_config(norm_type: str = "graph", dropout: float = 0.05, arch: str = "packaged"):
+    """The config ``train_packaged_architecture`` trains (its flags through
+    the train CLI's own parser and ``make_config``)."""
+    args = train_cli.build_parser().parse_args([
+        *train_eval.ARCH_FLAGS[arch], "--norm_type", norm_type, "--node_embed_norm",
+        "zscore_l2", "--normalize_nodes_before_pool", "--dropout", str(dropout)])
+    hidden = [int(h) for h in args.hidden_dim.split(",")]
+    return train_cli.make_config(args, hidden if len(hidden) > 1 else hidden[0])
+
+
+def write_pair_tables(tmp: str, families, seed: int) -> tuple[str, str]:
+    """A triplet TSV (anchor and positive from one family, the negative
+    from the next) and a regression TSV (random targets) over ``families``."""
+    rng = np.random.default_rng(seed)
+    n = len(families)
+    trip = [[families[f][0].structure, families[f][1].structure,
+             families[(f + 1) % n][2].structure] for f in range(n)]
+    pairs = [[families[f][0].structure, families[f][3].structure, float(rng.random())]
+             for f in range(n)]
+    t = os.path.join(tmp, "triplets.tsv")
+    write_tsv(t, ["anchor_structure", "positive_structure", "negative_structure"], trip)
+    r = os.path.join(tmp, "pairs.tsv")
+    write_tsv(r, ["anchor_structure", "positive_structure", "f_total_modifications"], pairs)
+    return t, r
+
+
+def one_step(cfg, loss_fn, params, state, batch, dev, dtype=torch.float32, seed=0):
+    """Loss, gradients (by leaf path, float64 on the CPU) and new state of
+    one train-mode forward and backward on ``dev``."""
+    p = tree_map(lambda t: t.to(dev, dtype).clone().requires_grad_(True), params)
+    s = tree_map(lambda t: t.to(dev, dtype), state)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    loss, new_state = loss_fn(cfg, p, s, batch_as(batch.to(dev), dtype), gen)
+    loss.backward()
+    grads = {"/".join(k): (v.grad if v.grad is not None else torch.zeros_like(v))
+             .detach().cpu().double() for k, v in _leaves((), p)}
+    return float(loss.detach()), grads, tree_map(lambda t: t.cpu().double(), new_state)
+
+
+def card_vs_cpu(cfg, loss_fn, params, state, batch, dev) -> dict:
+    """One step on the card and on the CPU (float32): the loss within 1e-5
+    relative; each gradient leaf (and batch norm's running statistics)
+    within ``1e-5 * max(1, max|g|)`` of the CPU's, or no farther from a
+    float64 CPU run than twice the float32 CPU run is (+1e-6 of the leaf's
+    scale: the node checks' tie-break), or, failing both, the card's
+    float64 run within 1e-9 (scaled) of the CPU's, the same function, and
+    the card's float32 no farther from float64 than 8 times the CPU's
+    (cuBLAS's float32 sums: up to 5 times the CPU's distance in alignment
+    mode on an H100; a product in TF32 would sit 10-100 times farther)."""
+    cpu_dev = torch.device("cpu")
+    card = one_step(cfg, loss_fn, params, state, batch, dev)
+    cpu = one_step(cfg, loss_fn, params, state, batch, cpu_dev)
+    rel = abs(card[0] - cpu[0]) / max(abs(cpu[0]), 1e-30)
+    if not rel <= TRAIN_TOL:
+        raise AssertionError(f"train step loss: card {card[0]} vs CPU {cpu[0]}")
+
+    def by_path(run):
+        return {**{f"grad/{k}": v for k, v in run[1].items()},
+                **{f"state/{'/'.join(p)}": v for p, v in _leaves((), run[2])
+                   if "batch_norms" in p}}
+
+    c32, w32 = by_path(card), by_path(cpu)
+    f64 = {}
+    routes = {"cpu_1e-5": 0, "float64_tie_break": 0, "float64_on_both": 0}
+    worst = {"card_vs_cpu": 0.0, "card_to_f64_over_cpu_to_f64": 0.0}
+    for k, w in w32.items():
+        scale = max(1.0, float(w.abs().max()))
+        err = float((c32[k] - w).abs().max()) / scale
+        worst["card_vs_cpu"] = max(worst["card_vs_cpu"], err)
+        if err <= TRAIN_TOL:
+            routes["cpu_1e-5"] += 1
+            continue
+        if not f64:
+            f64["cpu"] = by_path(one_step(cfg, loss_fn, params, state, batch, cpu_dev,
+                                          torch.float64))
+            f64["card"] = by_path(one_step(cfg, loss_fn, params, state, batch, dev,
+                                           torch.float64))
+        card_d = float((c32[k] - f64["cpu"][k]).abs().max())
+        cpu_d = float((w - f64["cpu"][k]).abs().max())
+        worst["card_to_f64_over_cpu_to_f64"] = max(worst["card_to_f64_over_cpu_to_f64"],
+                                                   card_d / max(cpu_d, 1e-30))
+        if card_d <= 2 * cpu_d + 1e-6 * scale:
+            routes["float64_tie_break"] += 1
+            continue
+        same64 = float((f64["card"][k] - f64["cpu"][k]).abs().max()) <= 1e-9 * scale
+        if not (same64 and card_d <= 8 * cpu_d + 1e-6 * scale):
+            raise AssertionError(f"train step {k}: card {err * scale} from the CPU, "
+                                 f"{card_d} from float64 (CPU {cpu_d}), float64 runs "
+                                 f"{'equal' if same64 else 'apart'}")
+        routes["float64_on_both"] += 1
+    if f64:  # the same function: the card's float64 run against the CPU's
+        worst["float64_card_vs_cpu"] = max(
+            float((f64["card"][k] - v).abs().max()) / max(1.0, float(v.abs().max()))
+            for k, v in f64["cpu"].items())
+    return {"loss_card": card[0], "loss_cpu": cpu[0], "loss_rel_err": rel,
+            "leaves": len(w32), "leaves_by_route": routes, **worst}
+
+
+def repeat_step(cfg, loss_fn, params, state, batch, dev) -> dict:
+    """The same train step (dropout on, one generator seed) twice on the
+    card: gradients, updated parameters and state bit-equal."""
+    runs = []
+    for _ in range(2):
+        ts = TrainState.create(tree_map(lambda t: t.to(dev), params),
+                               tree_map(lambda t: t.to(dev), state), 5e-4)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+        ts, loss = make_train_step(cfg, loss_fn)(ts, batch.to(dev), gen)
+        runs.append(([leaf.grad.clone() for _, leaf in _leaves((), ts.params)
+                      if leaf.grad is not None],
+                     [leaf.detach().clone() for _, leaf in _leaves((), ts.params)]
+                     + [t.clone() for _, t in _leaves((), ts.model_state)], float(loss)))
+    (g1, p1, l1), (g2, p2, l2) = runs
+    same = (l1 == l2 and len(g1) == len(g2) and all(map(torch.equal, g1, g2))
+            and all(map(torch.equal, p1, p2)))
+    if not same:
+        raise AssertionError("two runs of one train step on the card differ")
+    return {"bit_equal": True, "loss": l1, "grad_leaves": len(g1)}
+
+
+def epoch_split(cfg, params, state, ds, dev, loss_cfg) -> dict:
+    """One training epoch of the alignment dataset as the train CLI runs
+    it (batch size 32, 16 unaligned a graph, 5,000 negatives): host batch
+    assembly and upload on the host's clock, each step's forward, backward
+    and Adam from CUDA events, and the epoch's wall time (synchronised)."""
+    ts = TrainState.create(tree_map(lambda t: t.to(dev), params),
+                           tree_map(lambda t: t.to(dev), state), 1e-4)
+    step = make_train_step(cfg, alignment_loss_fn(loss_cfg))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    batches = train_data.iter_alignment_batches(ds, 32, 16, np.random.default_rng(SEED),
+                                                max_negatives=5000)
+    host_s = upload_s = 0.0
+    events, graphs, nodes = [], 0, 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while True:
+        t = time.perf_counter()
+        b = next(batches, None)
+        host_s += time.perf_counter() - t
+        if b is None:
+            break
+        t = time.perf_counter()
+        bd = b.to(dev)
+        upload_s += time.perf_counter() - t
+        graphs += int((b.graphs.n_nodes > 0).sum())
+        nodes += int(b.graphs.node_mask.sum())
+        ev = {k: torch.cuda.Event(enable_timing=True) for k in ("start", "forward",
+                                                                "backward", "adam")}
+        ev["start"].record()
+        step(ts, bd, gen, marks=lambda name, ev=ev: ev[name].record())
+        events.append((ev, int(b.valid.sum()), b.valid.shape[0]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ms = {k: sum(e[a].elapsed_time(e[k]) for e, _, _ in events)
+          for a, k in (("start", "forward"), ("forward", "backward"), ("backward", "adam"))}
+    return {"steps": len(events), "graphs": graphs, "nodes": nodes,
+            "subset_nodes": [m for _, m, _ in events], "subset_capacity": [c for *_, c in events],
+            "epoch_seconds": wall, "steps_per_s": len(events) / wall,
+            "graphs_per_s": graphs / wall, "host_assembly_seconds": host_s,
+            "upload_seconds": upload_s, "device_forward_ms": ms["forward"],
+            "device_backward_ms": ms["backward"], "device_adam_ms": ms["adam"],
+            "device_step_ms": sum(ms.values())}
+
+
+def log_series(log_path: str, key: str) -> list:
+    with open(log_path) as f:
+        return [float(ln.split(":", 1)[1]) for ln in f if ln.startswith(key + ":")]
+
+
+@contextlib.contextmanager
+def interrupted_at_epoch(epoch: int):
+    """Ctrl-C at the given epoch's early-stopping update, the best-weights
+    prompt answered "n" (the train CLI's interactive path, unattended)."""
+    call, ask, calls = EarlyStopping.__call__, builtins.input, []
+
+    def interrupting(es, val, ts):
+        calls.append(1)
+        if len(calls) >= epoch:
+            raise KeyboardInterrupt
+        return call(es, val, ts)
+
+    EarlyStopping.__call__, builtins.input = interrupting, lambda *a: "n"
+    try:
+        yield
+    finally:
+        EarlyStopping.__call__, builtins.input = call, ask
+
+
+def train_path(tmp: str, dev) -> dict:
+    """Training and its probes on the card, at the packaged width (6 x
+    GINE-128, GraphNorm, zscore_l2, nodes normalised before the pool,
+    dropout 0.05); returns the phase's record."""
+    rec = {}
+    data_p, map_p, eval_fams = train_eval.generate_alignment_training_data(
+        os.path.join(tmp, "data"))
+    train_fams = [msa_eval.make_family(7 + f, n_seqs=5, anc_len=100, sub_rate=0.05,
+                                       del_rate=0.03, ins_rate=0.03)
+                  for f in range(TRAIN_PAIR_ROWS)]
+    trip_p, pair_p = write_pair_tables(tmp, train_fams, SEED + 21)
+    with open(map_p) as f:
+        amap = json.load(f)
+    align_ds = train_data.AlignmentDataset(read_table(data_p), amap)
+    loss_cfg = AlignmentLossConfig(margin=0.2, temperature=0.1)  # the CLI's defaults
+    loss_fns = {"triplet": triplet_loss_fn(1.0), "regression": regression_loss_fn(),
+                "alignment": alignment_loss_fn(loss_cfg)}
+
+    def first_batch(mode, groups):
+        if mode == "alignment":
+            return train_data.assemble_alignment_batch(
+                align_ds.groups[:groups], 16, np.random.default_rng(SEED), max_negatives=5000)
+        table = read_table(trip_p if mode == "triplet" else pair_p)
+        ds = (train_data.TripletDataset if mode == "triplet" else train_data.PairDataset)(table)
+        build_fn = train_data._triplet_batch if mode == "triplet" else train_data._pair_batch
+        return build_fn(ds, np.arange(groups), _round_capacity(groups), None)
+
+    forward_windows.launches = dp_wavefront.launches = wavefront_plain.launches = 0
+    dp_wavefront.warp_launches = 0
+
+    # (a) card vs CPU, dropout 0, one step per mode and the batch-norm variant
+    t0 = time.perf_counter()
+    rec["card_vs_cpu"] = {}
+    for name, mode, norm, groups in (("triplet", "triplet", "graph", 16),
+                                     ("regression", "regression", "graph", 16),
+                                     ("alignment", "alignment", "graph", 4),
+                                     ("regression_batch_norm", "regression", "batch", 16)):
+        cfg = train_config(norm, dropout=0.0)
+        params, state = variant_model(cfg, SEED + 22)
+        rec["card_vs_cpu"][name] = card_vs_cpu(cfg, loss_fns[mode], params, state,
+                                               first_batch(mode, groups), dev)
+    rec["card_vs_cpu_seconds"] = time.perf_counter() - t0
+
+    # (b) two runs of a step on the card, dropout 0.05, batches of 32
+    t0 = time.perf_counter()
+    cfg = train_config()
+    rec["determinism"] = {
+        mode: repeat_step(cfg, loss_fns[mode], *seeded_model(cfg, SEED + 23),
+                          first_batch(mode, 32), dev)
+        for mode in ("triplet", "regression", "alignment")}
+    rec["determinism_seconds"] = time.perf_counter() - t0
+
+    # (c) the training run: two rounds from a seeded checkpoint
+    start = os.path.join(tmp, "start.pth")
+    export_torch_checkpoint(start, cfg, *seeded_model(cfg, SEED + 24))
+    out_dir = os.path.join(tmp, "run")
+    with contextlib.redirect_stdout(io.StringIO()):
+        trained, wall = train_eval.train_packaged_architecture(
+            data_p, map_p, out_dir, rounds=TRAIN_ROUNDS, checkpoint=start)
+    torch.cuda.synchronize()
+    rounds = []
+    for r in range(1, len(TRAIN_ROUNDS) + 1):
+        log = os.path.join(out_dir, "output", "trained_eval", f"round_{r:02d}", "train.log")
+        rounds.append({"train_loss": log_series(log, "Training Loss"),
+                       "val_loss": log_series(log, "Validation Loss"),
+                       "learning_rate": log_series(log, "Learning Rate")})
+    epochs = sum(len(r["train_loss"]) - 1 for r in rounds)
+    n_train = len(align_ds) - max(1, round(len(align_ds) * 0.03))
+    steps = epochs * -(-n_train // 32)
+    # the first and last epochs' mean train-mode losses (each log's first
+    # line is an inference-mode evaluation of 5% of the batches)
+    initial, final = rounds[0]["train_loss"][1], rounds[-1]["train_loss"][-1]
+    rec["training_run"] = {
+        "families": len(align_ds), "train_families": n_train, "rounds": rounds,
+        "epochs": epochs, "steps": steps, "cli_seconds": wall,
+        "cli_steps_per_s": steps / wall, "cli_graphs_per_s": 5 * n_train * epochs / wall,
+        "initial_train_loss": initial, "final_train_loss": final}
+    if not (np.isfinite(final) and final < initial):
+        raise AssertionError(f"training did not lower the loss: {initial} -> {final}")
+    tcfg, tparams, tstate, _ = load_checkpoint(trained)
+    rec["epoch_split"] = epoch_split(tcfg, tparams, tstate, align_ds, dev, loss_cfg)
+
+    # (d) the probes of the trained and the starting checkpoint
+    t0 = time.perf_counter()
+    k2_before = dp_wavefront.launches
+    rec["probes"] = {name: {
+        "recall_at_10": train_eval.retrieval_recall_at_10(path, eval_fams),
+        "alignment_sp_f1": train_eval.alignment_sp_f1(path, eval_fams),
+    } for name, path in (("trained", trained), ("start", start))}
+    torch.cuda.synchronize()
+    rec["probes"].update(
+        seconds=time.perf_counter() - t0, eval_families=len(eval_fams),
+        eval_pairs=sum(len(f) * (len(f) - 1) // 2 for f in eval_fams),
+        dp_kernel_launches=dp_wavefront.launches - k2_before)
+
+    # (e) triplet and regression through the CLI, --fit-node-stats
+    t0 = time.perf_counter()
+    rec["other_modes"] = {}
+    for mode, path in (("triplet", trip_p), ("regression", pair_p)):
+        wd = os.path.join(tmp, mode)
+        os.makedirs(wd)
+        t1 = time.perf_counter()
+        with contextlib.chdir(wd), contextlib.redirect_stdout(io.StringIO()):
+            train_cli.main(["--input_path", path, "--training_mode", mode, "--model_id", mode,
+                            *train_eval.ARCH_FLAGS["packaged"], "--norm_type", "graph",
+                            "--node_embed_norm", "zscore_l2", "--fit-node-stats",
+                            "--dropout", "0.05", "--batch_size", "32", "--num_epochs", "2",
+                            "--lr", "5e-4"])
+        torch.cuda.synchronize()
+        sd = torch.load(os.path.join(wd, "output", mode, f"{mode}.pth"),
+                        weights_only=False)["state_dict"]
+        mu, sigma = sd["node_mu"], sd["node_sigma"]
+        if torch.equal(mu, torch.zeros_like(mu)) or torch.equal(sigma, torch.ones_like(sigma)):
+            raise AssertionError(f"{mode}: --fit-node-stats left node_mu/node_sigma at 0/1")
+        log = os.path.join(wd, "output", mode, "train.log")
+        rec["other_modes"][mode] = {
+            "seconds": time.perf_counter() - t1, "train_loss": log_series(log, "Training Loss"),
+            "node_mu_abs_mean": float(mu.abs().mean()), "node_sigma_mean": float(sigma.mean())}
+    rec["other_modes_seconds"] = time.perf_counter() - t0
+
+    # (f) exact resume: --save-every 1, stopped in epoch 2, resumed
+    t0 = time.perf_counter()
+    wd = os.path.join(tmp, "resume")
+    os.makedirs(wd)
+    argv = ["--input_path", trip_p, "--training_mode", "triplet",
+            *train_eval.ARCH_FLAGS["packaged"], "--dropout", "0.05", "--batch_size", "32",
+            "--num_epochs", "3", "--patience", "10", "--lr", "5e-4", "--save-every", "1"]
+    with contextlib.chdir(wd), contextlib.redirect_stdout(io.StringIO()):
+        train_cli.main(argv + ["--model_id", "full"])
+        with interrupted_at_epoch(2):
+            train_cli.main(argv + ["--model_id", "part"])
+        train_cli.main(argv + ["--model_id", "part", "--resume-from",
+                               os.path.join("output", "part", "checkpoints")])
+    full, part = (torch.load(os.path.join(wd, "output", m, f"{m}.pth"), weights_only=False)
+                  for m in ("full", "part"))
+    resumed_equal = (full["epoch"] == part["epoch"]
+                     and full["state_dict"].keys() == part["state_dict"].keys()
+                     and all(torch.equal(v, part["state_dict"][k])
+                             for k, v in full["state_dict"].items()))
+    if not resumed_equal:
+        raise AssertionError("the resumed run's .pth differs from the uninterrupted run's")
+    rec["resume"] = {"bit_equal": True, "epoch": full["epoch"],
+                     "seconds": time.perf_counter() - t0}
+
+    # (g) the flagship architecture (4 layers 256 -> 512 x 3, forgi)
+    t0 = time.perf_counter()
+    out_dir = os.path.join(tmp, "flagship")
+    with contextlib.redirect_stdout(io.StringIO()):
+        flag_ckpt, flag_wall = train_eval.train_packaged_architecture(
+            data_p, map_p, out_dir, rounds=FLAGSHIP_ROUNDS, arch="flagship")
+    torch.cuda.synchronize()
+    fcfg, fparams, fstate, _ = load_checkpoint(flag_ckpt)
+    forgi_ds = train_data.AlignmentDataset(read_table(data_p), amap, graph_encoding="forgi")
+    rec["flagship"] = {"cli_seconds": flag_wall, "hidden_dims": list(fcfg.hidden_dims),
+                       "output_dim": fcfg.output_dim, "graph_encoding": fcfg.graph_encoding,
+                       **epoch_split(fcfg, fparams, fstate, forgi_ds, dev, loss_cfg),
+                       "seconds": time.perf_counter() - t0}
+
+    rec.update(window_kernel_launches=forward_windows.launches,
+               dp_kernel_launches=dp_wavefront.launches,
+               dp_kernel_warp_launches=dp_wavefront.warp_launches,
+               plain_dp_launches=wavefront_plain.launches)
+    if forward_windows.launches or not dp_wavefront.launches or \
+            dp_wavefront.warp_launches != dp_wavefront.launches or wavefront_plain.launches:
+        raise AssertionError(f"train_path: K1 {forward_windows.launches}, K2 "
+                             f"{dp_wavefront.launches} ({dp_wavefront.warp_launches} on the "
+                             f"warp route), plain DP {wavefront_plain.launches}")
+    return rec
+
+
 @contextlib.contextmanager
 def phase(name: str, record: dict):
     t0 = time.perf_counter()
@@ -1892,6 +2300,10 @@ def main() -> int:
         with phase("msa_tools_path", {"card": card}) as rec:
             rec.update(msa_tools_path(tmp, dev, msa_records, cfg, main_params, main_state))
 
+    with tempfile.TemporaryDirectory() as tmp, phase("train_path", {"card": card}) as rec:
+        rec.update(train_path(tmp, dev))
+        train_k2_launches = rec["dp_kernel_launches"]
+
     with phase("kernel_timing", {"card": card}) as rec:
         p, s = model.params, model.state
         x0, flags = chunk_inputs(cfg, p, structures, WINDOW, dev)
@@ -1986,6 +2398,7 @@ def main() -> int:
         "source": "ginfinity_tpu_torch/ops/csrc/dp_wavefront.cu",
         "replaces": "ginfinity_tpu/ops/pallas_dp.py:48",
         "launches": dp_launches,
+        "train_path_launches": train_k2_launches,
         "max_abs_err": max(dp_errs),
         "ms": k2["ms"],
         "plain_ms": k2["plain_ms"],

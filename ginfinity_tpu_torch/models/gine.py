@@ -1,8 +1,10 @@
 """GINE encoder configuration, parameters and shared layer helpers.
 
-Port of ``ginfinity_tpu/models/gine.py`` in inference mode: every norm
-type (graph, layer, instance, batch with running state, none) and every
-pooling (add, mean, Set2Set).  Parameters keep the JAX package's tree
+Port of ``ginfinity_tpu/models/gine.py``: every norm type (graph, layer,
+instance, batch with running state, none) and every pooling (add, mean,
+Set2Set), in inference and in train mode (dropout from an explicit
+``torch.Generator``, batch norm's batch statistics and running update,
+``fit_node_stats``).  Parameters keep the JAX package's tree
 layout — nested dicts with ``[in, out]`` dense kernels — so the fused
 window forward reads like its JAX counterpart and a JAX parameter tree
 carries over key for key (``models/checkpoint.py::params_from_jax``).
@@ -13,11 +15,18 @@ Layer semantics (PyG parity):
   LayerNorm (graph mode): one mean and variance per graph over all its
   ``nodes x features`` entries, then the affine.
   InstanceNorm: per-graph, per-feature statistics, no affine.
-  BatchNorm: the checkpoint's ``running_mean``/``running_var``.
+  BatchNorm: the checkpoint's ``running_mean``/``running_var``; in train
+  mode the batch's statistics over real nodes, and the running update.
   Set2Set: two steps of a torch-layout LSTM (gates i, f, g, o) with
   attention over each graph's nodes.
   node_embed_norm 'zscore_l2': z-score with the ``node_mu``/``node_sigma``
   buffers, then row L2.
+
+Every gather with repeated indices and every segment sum goes through
+:class:`_Gather` and :class:`_SegmentSum`, whose backward passes are each
+other: the gradient of a gather is summed in index order, on the card as
+on the CPU, never by the card's atomic ``index_add_``, so two runs of a
+train step give the same gradients bit for bit.
 """
 
 from __future__ import annotations
@@ -26,6 +35,7 @@ import dataclasses
 import math
 from typing import Any
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -291,7 +301,7 @@ def apply_node_norm(config: GINConfig, state: State, x: torch.Tensor) -> torch.T
     return x
 
 
-def _segment_sum(x: torch.Tensor, seg: torch.Tensor, num_segments: int) -> torch.Tensor:
+def _segment_add(x: torch.Tensor, seg: torch.Tensor, num_segments: int) -> torch.Tensor:
     """``jax.ops.segment_sum`` into zeros, each segment summed in index
     order: ``index_add_`` on the CPU, ``_ordered_segment_sum`` on the
     card, where ``index_add_`` adds with atomics in an order that changes
@@ -301,6 +311,48 @@ def _segment_sum(x: torch.Tensor, seg: torch.Tensor, num_segments: int) -> torch
         return _ordered_segment_sum(x, seg, num_segments)
     out = torch.zeros((num_segments,) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
     return out.index_add_(0, seg, x)
+
+
+class _SegmentSum(torch.autograd.Function):
+    """:func:`_segment_add` whose backward is the gather ``grad[seg]``."""
+
+    @staticmethod
+    def forward(ctx, x, seg, num_segments):
+        ctx.save_for_backward(seg)
+        return _segment_add(x, seg, num_segments)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (seg,) = ctx.saved_tensors
+        return grad.index_select(0, seg), None, None
+
+
+class _Gather(torch.autograd.Function):
+    """``x[idx]`` along dim 0 whose backward adds the gradient's rows back
+    into ``x``'s by :func:`_segment_add`, in index order.  Autograd's own
+    backward of a gather is ``index_add_``, with atomics on the card."""
+
+    @staticmethod
+    def forward(ctx, x, idx):
+        ctx.save_for_backward(idx)
+        ctx.rows = x.shape[0]
+        return x.index_select(0, idx)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (idx,) = ctx.saved_tensors
+        return _segment_add(grad, idx, ctx.rows), None
+
+
+def _segment_sum(x: torch.Tensor, seg: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """Per-segment sums ``[num_segments, ...]`` in index order, with an
+    index-ordered backward."""
+    return _SegmentSum.apply(x, seg, num_segments)
+
+
+def _gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[idx]`` (rows), with an index-ordered backward."""
+    return _Gather.apply(x, idx)
 
 
 def _ordered_segment_sum(x: torch.Tensor, seg: torch.Tensor, num_segments: int) -> torch.Tensor:
@@ -342,10 +394,10 @@ def _segment_mean(x: torch.Tensor, batch: GraphBatch, counts: torch.Tensor) -> t
 def _graph_norm(x: torch.Tensor, p: dict, batch: GraphBatch) -> torch.Tensor:
     counts = _graph_counts(batch)
     mean = _segment_mean(x, batch, counts)
-    out = x - mean[batch.node_graph] * p["mean_scale"]
+    out = x - _gather(mean, batch.node_graph) * p["mean_scale"]
     var = _segment_mean(out * out, batch, counts)
     std = torch.sqrt(var + _NORM_EPS)
-    return p["weight"] * out / std[batch.node_graph] + p["bias"]
+    return p["weight"] * out / _gather(std, batch.node_graph) + p["bias"]
 
 
 def _layer_norm_graph(x: torch.Tensor, p: dict, batch: GraphBatch) -> torch.Tensor:
@@ -354,47 +406,80 @@ def _layer_norm_graph(x: torch.Tensor, p: dict, batch: GraphBatch) -> torch.Tens
     g1 = batch.num_graphs + 1
     counts = torch.clamp(_graph_counts(batch) * x.shape[1], min=1.0)
     mean = _segment_sum(x.sum(dim=1) * batch.node_mask, batch.node_graph, g1) / counts
-    xc = x - mean[batch.node_graph][:, None]
+    xc = x - _gather(mean, batch.node_graph)[:, None]
     var = _segment_sum((xc * xc).sum(dim=1) * batch.node_mask, batch.node_graph, g1) / counts
-    out = xc / torch.sqrt(var + _NORM_EPS)[batch.node_graph][:, None]
+    out = xc / _gather(torch.sqrt(var + _NORM_EPS), batch.node_graph)[:, None]
     return out * p["weight"] + p["bias"]
 
 
 def _instance_norm(x: torch.Tensor, batch: GraphBatch) -> torch.Tensor:
     """PyG ``InstanceNorm`` (no affine): per-graph, per-feature statistics."""
     counts = _graph_counts(batch)
-    xc = x - _segment_mean(x, batch, counts)[batch.node_graph]
+    xc = x - _gather(_segment_mean(x, batch, counts), batch.node_graph)
     var = _segment_mean(xc * xc, batch, counts)
-    return xc / torch.sqrt(var[batch.node_graph] + _NORM_EPS)
+    return xc / torch.sqrt(_gather(var, batch.node_graph) + _NORM_EPS)
 
 
-def _batch_norm(x: torch.Tensor, p: dict, bn_state: dict) -> torch.Tensor:
-    """``BatchNorm`` in eval: the running statistics, then the affine."""
-    out = (x - bn_state["running_mean"]) / torch.sqrt(bn_state["running_var"] + _NORM_EPS)
-    return out * p["weight"] + p["bias"]
+_BN_MOMENTUM = 0.1
 
 
-def encode_nodes(config: GINConfig, params: Params, state: State, batch: GraphBatch,
-                 *, train: bool = False) -> torch.Tensor:
-    """The GINE stack in inference mode; raw node embeddings [N_pad, D].
+def _batch_norm(x: torch.Tensor, p: dict, bn_state: dict, batch: GraphBatch,
+                train: bool) -> tuple[torch.Tensor, dict]:
+    """``BatchNorm``: in eval the running statistics, in train the batch's
+    over real nodes, with the running update (momentum 0.1, the variance
+    made unbiased by ``n / (n - 1)``); then the affine.  Returns the
+    output and the layer's new running state (detached)."""
+    if train:
+        mask = batch.node_mask[:, None]
+        n = torch.clamp(batch.node_mask.sum(), min=1.0)
+        mean = (x * mask).sum(dim=0) / n
+        xc = x - mean
+        var = (xc * xc * mask).sum(dim=0) / n
+        unbiased = var * n / torch.clamp(n - 1.0, min=1.0)
+        m = _BN_MOMENTUM
+        new_state = {
+            "running_mean": ((1 - m) * bn_state["running_mean"] + m * mean).detach(),
+            "running_var": ((1 - m) * bn_state["running_var"] + m * unbiased).detach(),
+        }
+    else:
+        mean, var, new_state = bn_state["running_mean"], bn_state["running_var"], bn_state
+    out = (x - mean) / torch.sqrt(var + _NORM_EPS)
+    return out * p["weight"] + p["bias"], new_state
+
+
+def _dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+    """Inverted dropout as the JAX package computes it: each entry kept
+    with probability ``1 - rate`` (a uniform draw from ``generator`` below
+    it) and scaled by ``1 / (1 - rate)``, the rest 0."""
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, dtype=x.dtype, device=x.device) < keep
+    return torch.where(mask, x / keep, 0.0)
+
+
+def _encode(config: GINConfig, params: Params, state: State, batch: GraphBatch,
+            train: bool, generator: torch.Generator | None) -> tuple[torch.Tensor, State]:
+    """The GINE stack; raw node embeddings [N_pad, D] and the new state.
 
     Each layer: ``msg = relu(x[src] + edge_lin(attr)) * edge_mask``
-    summed into ``dst``; ``h = (1 + eps) x + agg``; a 2-layer ReLU MLP;
-    the layer's norm; the residual when the widths match."""
-    if train:
-        raise NotImplementedError(
-            "training mode and dropout are not ported yet (ROADMAP queue 1, item 10)"
-        )
+    summed into ``dst``; ``h = (1 + eps) x + agg``; a 2-layer ReLU MLP,
+    with dropout after its first layer; the layer's norm; dropout; the
+    residual when the widths match.  Dropout runs in train mode with a
+    ``generator`` and a positive rate, its masks drawn layer by layer."""
     prec = config.matmul_precision
+    drop = train and config.dropout > 0 and generator is not None
     x = _dense(batch.node_feat, params["node_encoder"], prec)
+    new_bns = []
     for i in range(config.gin_layers):
         conv = params["convs"][i]
         h_in = x
         edge_emb = _dense(batch.edge_attr, conv["edge_lin"], prec)
-        msg = torch.relu(x[batch.edge_src] + edge_emb) * batch.edge_mask[:, None]
+        msg = torch.relu(_gather(x, batch.edge_src) + edge_emb) * batch.edge_mask[:, None]
         agg = _segment_sum(msg, batch.edge_dst, batch.num_nodes_padded)
-        h = (1.0 + conv["eps"]) * x + agg
+        eps = conv["eps"] if config.train_eps else conv["eps"].detach()
+        h = (1.0 + eps) * x + agg
         h = torch.relu(_dense(h, conv["mlp0"], prec))
+        if drop:
+            h = _dropout(h, config.dropout, generator)
         h = torch.relu(_dense(h, conv["mlp1"], prec))
         norm = config.norm_type
         if norm == "graph":
@@ -404,21 +489,49 @@ def encode_nodes(config: GINConfig, params: Params, state: State, batch: GraphBa
         elif norm == "instance":
             h = _instance_norm(h, batch)
         elif norm == "batch":
-            h = _batch_norm(h, params["norms"][i], state["batch_norms"][i])
+            h, bn = _batch_norm(h, params["norms"][i], state["batch_norms"][i], batch, train)
+            new_bns.append(bn)
+        if drop:
+            h = _dropout(h, config.dropout, generator)
         if config.use_residual and h_in.shape == h.shape:
             h = h + h_in
         x = h
-    return x
+    new_state = dict(state)
+    if new_bns:
+        new_state["batch_norms"] = new_bns
+    return x, new_state
+
+
+def encode_nodes(config: GINConfig, params: Params, state: State,
+                 batch: GraphBatch) -> torch.Tensor:
+    """The GINE stack in inference mode; raw node embeddings [N_pad, D]."""
+    return _encode(config, params, state, batch, False, None)[0]
+
+
+def encode_nodes_train(config: GINConfig, params: Params, state: State, batch: GraphBatch,
+                       generator: torch.Generator | None = None
+                       ) -> tuple[torch.Tensor, State]:
+    """The GINE stack in train mode: batch norm on the batch's statistics,
+    dropout when ``generator`` is given.  Returns the raw node embeddings
+    and the new state (batch norm's running statistics updated)."""
+    return _encode(config, params, state, batch, True, generator)
 
 
 def get_node_embeddings(config: GINConfig, params: Params, state: State,
-                        batch: GraphBatch, *, apply_norm: bool = True,
-                        train: bool = False) -> torch.Tensor:
+                        batch: GraphBatch, *, apply_norm: bool = True) -> torch.Tensor:
     """Node embeddings [N_pad, D], node-normalised when ``apply_norm``."""
-    x = encode_nodes(config, params, state, batch, train=train)
+    x = encode_nodes(config, params, state, batch)
     if apply_norm:
         x = apply_node_norm(config, state, x)
     return x
+
+
+def get_node_embeddings_train(config: GINConfig, params: Params, state: State,
+                              batch: GraphBatch, generator: torch.Generator | None = None
+                              ) -> tuple[torch.Tensor, State]:
+    """Node-normalised node embeddings in train mode, and the new state."""
+    x, new_state = encode_nodes_train(config, params, state, batch, generator)
+    return apply_node_norm(config, state, x), new_state
 
 
 def _set2set(params: Params, x: torch.Tensor, batch: GraphBatch,
@@ -442,12 +555,12 @@ def _set2set(params: Params, x: torch.Tensor, batch: GraphBatch,
         gi, gf, gg, go = gates.chunk(4, dim=1)
         c = torch.sigmoid(gf) * c + torch.sigmoid(gi) * torch.tanh(gg)
         h = torch.sigmoid(go) * torch.tanh(c)
-        e = torch.where(real, (x * h[seg]).sum(dim=1), neg_inf)
+        e = torch.where(real, (x * _gather(h, seg)).sum(dim=1), neg_inf)
         emax = torch.full((g1,), neg_inf, dtype=x.dtype, device=x.device).scatter_reduce(
             0, seg, e, "amax", include_self=False)
-        a = torch.exp(e - emax[seg]) * batch.node_mask
+        a = torch.exp(e - _gather(emax, seg)) * batch.node_mask
         asum = _segment_sum(a, batch.node_graph, g1)
-        a = a / torch.clamp(asum[seg], min=1e-16)
+        a = a / torch.clamp(_gather(asum, seg), min=1e-16)
         r = _segment_sum(a[:, None] * x, batch.node_graph, g1)
         q_star = torch.cat([h, r], dim=1)
     return q_star
@@ -469,16 +582,56 @@ def pool_and_project(config: GINConfig, params: Params, x: torch.Tensor,
 
 
 def forward_once(config: GINConfig, params: Params, state: State, batch: GraphBatch,
-                 *, normalize_nodes_before_pool: bool | None = None,
-                 train: bool = False) -> torch.Tensor:
+                 *, normalize_nodes_before_pool: bool | None = None) -> torch.Tensor:
     """Graph embeddings ``[G, output_dim]``: node embeddings, node-normalised
     when ``normalize_nodes_before_pool`` (default: the config's), pooled
     and projected."""
     if normalize_nodes_before_pool is None:
         normalize_nodes_before_pool = config.normalize_nodes_before_pool
     x = get_node_embeddings(config, params, state, batch,
-                            apply_norm=normalize_nodes_before_pool, train=train)
+                            apply_norm=normalize_nodes_before_pool)
     return pool_and_project(config, params, x, batch)
+
+
+def forward_once_train(config: GINConfig, params: Params, state: State, batch: GraphBatch,
+                       generator: torch.Generator | None = None
+                       ) -> tuple[torch.Tensor, State]:
+    """Graph embeddings in train mode, and the new state."""
+    x, new_state = encode_nodes_train(config, params, state, batch, generator)
+    if config.normalize_nodes_before_pool:
+        x = apply_node_norm(config, state, x)
+    return pool_and_project(config, params, x, batch), new_state
+
+
+@torch.no_grad()
+def fit_node_stats(config: GINConfig, params: Params, state: State, batches) -> State:
+    """Streaming ``node_mu``/``node_sigma`` fit over the raw node
+    embeddings of ``batches`` (each moved to the state's device): host
+    numpy sums in the JAX package's order.  Returns the new state."""
+    dev = state["node_mu"].device
+    s = ss = None
+    n = 0.0
+    for b in batches:
+        b = b.to(dev)
+        x = encode_nodes(config, params, state, b)
+        m = b.node_mask.cpu().numpy()
+        xa = x.cpu().numpy() * m[:, None]
+        if s is None:
+            s = xa.sum(axis=0)
+            ss = (xa * xa).sum(axis=0)
+        else:
+            s += xa.sum(axis=0)
+            ss += (xa * xa).sum(axis=0)
+        n += float(m.sum())
+    if n == 0:
+        raise RuntimeError("No nodes seen while fitting node stats.")
+    mu = s / n
+    var = np.clip(ss / n - mu * mu, 0.0, None)
+    sigma = np.maximum(np.sqrt(var + config.eps), config.eps)
+    new_state = dict(state)
+    new_state["node_mu"] = torch.tensor(np.asarray(mu, np.float32), device=dev)
+    new_state["node_sigma"] = torch.tensor(np.asarray(sigma, np.float32), device=dev)
+    return new_state
 
 
 def listify(node):

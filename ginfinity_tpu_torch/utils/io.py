@@ -75,21 +75,42 @@ def cell_text(v) -> str:
     return "nan" if v is None else str(v)
 
 
-def read_table(path: str, sep: str | None = None) -> Table:
+def _drop_comment(cells: list[str], comment: str) -> list[str]:
+    """A parsed row cut at its first ``comment`` character, the cells after
+    it dropped, as pandas' python engine cuts it (inside quotes too)."""
+    for k, c in enumerate(cells):
+        if comment in c:
+            return cells[:k] + [c[: c.index(comment)]]
+    return cells
+
+
+def _rows(reader, comment: str | None):
+    """The reader's rows without blank ones; with ``comment``, each row
+    cut at it first and a row left with one blank cell skipped."""
+    for cells in reader:
+        if comment is not None:
+            cells = _drop_comment(cells, comment)
+            if len(cells) == 1 and not cells[0].strip():
+                continue
+        if cells:
+            yield cells
+
+
+def read_table(path: str, sep: str | None = None, comment: str | None = None) -> Table:
     """Read a CSV, or a TSV when the name ends in ``.tsv`` (or with the
-    separator ``sep``); blank lines are skipped."""
+    separator ``sep``); blank lines are skipped.  ``comment`` is
+    ``pandas.read_csv(comment=..., engine="python")``'s: every row, the
+    header too, ends at that character."""
     if sep is None:
         sep = "\t" if path.endswith(".tsv") else ","
     # a node-embeddings cell (an L x D matrix as JSON) runs to megabytes,
     # far beyond the csv module's default field limit of 128 KiB
     csv.field_size_limit(max(csv.field_size_limit(), 2**31 - 1))
     with open(path, newline="") as f:
-        reader = csv.reader(f, delimiter=sep)
-        columns = next(reader, [])
+        rows = _rows(csv.reader(f, delimiter=sep), comment)
+        columns = next(rows, [])
         lines = []
-        for cells in reader:
-            if not cells:
-                continue
+        for cells in rows:
             cells = cells + [""] * (len(columns) - len(cells))
             lines.append([None if v in _NA else v for v in cells])
     typed = [_typed_column([ln[k] for ln in lines]) for k in range(len(columns))]

@@ -1,6 +1,6 @@
 """Import and device hygiene of the port: its package,
 ``chip_smoke.py`` and ``k1_phases.py`` import nothing the card's machine lacks (no jax,
-flax, pandas, psutil, nor the JAX package), its entry points never run
+flax, optax, orbax, pandas, psutil, nor the JAX package), its entry points never run
 on the CPU unasked, and ``chip_smoke.py`` fails without a card."""
 
 import json
@@ -16,7 +16,7 @@ import torch
 import ginfinity_tpu_torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "flax", "pandas", "psutil", "ginfinity_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "pandas", "psutil", "ginfinity_tpu")
 
 _IMPORT_ALL = """
 import importlib, importlib.abc, pkgutil, sys
@@ -68,7 +68,10 @@ def test_entry_points_refuse_the_cpu_unasked(monkeypatch, tmp_path):
         optimize_msa,
         prewarm,
     )
+    from ginfinity_tpu_torch.models.checkpoint import export_torch_checkpoint
+    from ginfinity_tpu_torch.pipelines import train_eval
     from ginfinity_tpu_torch.pipelines.fast_windows import embed_corpus_windows
+    from ginfinity_tpu_torch.training import train_cli
     from ginfinity_tpu_torch.utils.device import resolve_device
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -76,6 +79,9 @@ def test_entry_points_refuse_the_cpu_unasked(monkeypatch, tmp_path):
     seqs.write_text("id,sequence\nx,ACGU\n")
     cfg = GINConfig.create(hidden_dim=128, output_dim=128, gin_layers=1)
     model = GINModel(cfg, *init_params(torch.Generator().manual_seed(0), cfg))
+    ckpt = str(tmp_path / "m.pth")
+    export_torch_checkpoint(ckpt, cfg, model.params, model.state)
+    fams = [msa_eval.make_family(0, 2, 20)]
     for call in (
         lambda: resolve_device(),
         lambda: resolve_device("cuda"),
@@ -97,6 +103,10 @@ def test_entry_points_refuse_the_cpu_unasked(monkeypatch, tmp_path):
         lambda: base_embed.main(["--input", str(seqs), "--output", str(tmp_path / "b.tsv"),
                                  "--id-column", "id"]),
         lambda: prewarm.main(["--msa", "3", "10"]),
+        lambda: train_cli.main(["--input_path", "x.tsv"]),
+        lambda: train_cli.main(["--input_path", "x.tsv", "--device", "cuda"]),
+        lambda: train_eval.retrieval_recall_at_10(ckpt, fams),
+        lambda: train_eval.alignment_sp_f1(ckpt, fams),
     ):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()

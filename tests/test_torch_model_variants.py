@@ -15,6 +15,8 @@ and mean pooling only, so it serves the forgi tests, not these.  The
 checkpoint round trips (``.pth`` both ways, the JAX package's native
 ``.zip``) carry every tensor exactly."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -288,7 +290,19 @@ def test_set2set_empty_graphs_read_zero_not_nan():
 
 
 def test_train_mode_raises_naming_item_10():
+    """Train mode, once refused naming ROADMAP item 10, is its own entry
+    (``forward_once_train``) and the inference forward takes no ``train``
+    flag.  Layer norm has no batch statistics, so at dropout 0 train mode
+    gives the inference output bit for bit and leaves the state as it
+    was."""
     _, _, pm = _models("layer_mean")
     _, batch, _ = _batches("layer_mean", STRUCTURES[:2])
-    with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1, item 10\)"):
+    with pytest.raises(TypeError, match="train"):
         gine.forward_once(pm.config, pm.params, pm.state, batch, train=True)
+    cfg = dataclasses.replace(pm.config, dropout=0.0)
+    out, state = gine.forward_once_train(cfg, pm.params, pm.state, batch,
+                                         torch.Generator().manual_seed(0))
+    assert torch.equal(out, gine.forward_once(cfg, pm.params, pm.state, batch))
+    before = pm.state
+    assert state.keys() == before.keys() and all(
+        torch.equal(state[k], before[k]) for k in state)

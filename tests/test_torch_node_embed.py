@@ -17,6 +17,7 @@ node states to 1e-5 of their largest magnitude, and a printed matrix to
 is rounded to 6 decimals."""
 
 import csv
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -208,14 +209,19 @@ def test_graphnorm_parameters_against_float64(name):
 
 
 def test_encode_nodes_unported_modes():
-    """Training mode still raises, naming the ROADMAP item (10) that
-    ports it; layer norm, ported since, runs in inference."""
-    from ginfinity_tpu_torch.models.gine import encode_nodes
+    """Every mode is ported now: training (ROADMAP item 10, once refused
+    here) is ``encode_nodes_train``, which at dropout 0 with no batch norm
+    gives the inference rows bit for bit, and ``encode_nodes`` takes no
+    ``train`` flag; layer norm runs in inference."""
+    from ginfinity_tpu_torch.models.gine import encode_nodes, encode_nodes_train
 
     (_, _, _), model = _models(CONFIGS["norm_none_l2"])
     batch = batching.batch_graphs([build.build_standard("((..))")])
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 10"):
+    with pytest.raises(TypeError, match="train"):
         encode_nodes(model.config, model.params, model.state, batch, train=True)
+    cfg = dataclasses.replace(model.config, dropout=0.0)
+    rows, _ = encode_nodes_train(cfg, model.params, model.state, batch)
+    assert torch.equal(rows, encode_nodes(cfg, model.params, model.state, batch))
     cfg = GINConfig.create(**{**CONFIGS["norm_none_l2"], "norm_type": "layer"})
     params = {**model.params, "norms": [{"weight": torch.ones(64), "bias": torch.zeros(64)}] * 2}
     out = encode_nodes(cfg, params, model.state, batch)
