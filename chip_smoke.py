@@ -41,10 +41,11 @@ the port's paths, the embedding paths with a seeded flagship checkpoint
   ``bench_msa_scale.py`` (200 records of 240-300 positions, 128-d, seed
   5) with its flags (``--alpha 5 --beta 0 --topk 20
   --consistency-rounds 1 --max-pairs 2000``), in library mode (the
-  default) and in profile mode: pair-HMM posteriors, consistency and the
-  progressive profile DP in torch on the card (no kernel of the port's
-  own: it launches neither K1 nor K2, and the phase fails if either
-  counter moves);
+  default) and in profile mode: pair-HMM posteriors, consistency, and
+  the progressive stage on the device pools (the library pool scatters
+  the consistency slabs where they lie; the profile pool merges on the
+  card), each level's traceback by the port's ``value_traceback`` kernel
+  (it must launch; K1 and K2 must not);
 * the MSA tools (``msa_tools_path``, no kernel either): ``--refine-iters
   32`` on the first 100 records of that family in library mode; a 24-record family refined in
   both modes on the card and the CPU; ``msa_eval`` on a known-homology
@@ -90,12 +91,24 @@ bf16 (the same four rounding points) for each case, and ``bf16_path``
 prints windows/s and structures/s at bf16 with each window's and each
 structure's cosine against the f32 run, the CLI's own ``[bf16-check]``
 numbers and the trace's busy share.  ``msa_path`` prints each mode's
-seconds, pairs/s and stage seconds, and holds the run to three checks:
-the exact profile DP on the card bit-equal (column dots, M/X/Y, op codes)
-to a numpy copy of the reference's float32 DP on 8 leaf merges of the
-family; two posterior batches' slabs on the card within 1e-5 of the
-port's CPU run; a 24-record family's ``.aln.tsv`` in both modes
-identical on the card and the CPU.  ``msa_tools_path`` prints each
+seconds, pairs/s, stage seconds and the pool's split, and holds the run
+to its checks: (a) the exact profile DP on the card bit-equal (column
+dots, M/X/Y, op codes) to a numpy copy of the reference's float32 DP on
+8 leaf merges of the family; (b) two posterior batches' slabs on the
+card within 1e-5 of the port's CPU run; (c) a 24-record family's
+``.aln.tsv`` in both modes, on the pools and under
+``GINFINITY_MSA_POOL=0``, identical on the card and the CPU; (e) both
+modes took their pool with no overflow, beside the progressive seconds
+of ``GINFINITY_MSA_POOL=0`` on the same family and the ``.aln.tsv``
+rows in which the two differ; (f) the library accumulator of the root
+split, on the run's own slabs, equal on the card and the CPU (max abs
+0), and two card runs of the library pool writing the same
+``.aln.tsv``; (g) both pools' enqueue loops under
+``torch.cuda.set_sync_debug_mode("error")``; (i) the TSV read with the
+native scanner and with ``json`` alone, the arrays identical.  (h) The
+``traceback_kernel_vs_plain`` phase holds the traceback kernel to its
+plain version on the states of random and of tie-rich scores at B = 64,
+P = 384, and times both.  ``msa_tools_path`` prints each
 part's seconds and holds them to checks: the refined SP score no lower
 than the progressive one and the outputs complete; the small family's
 refined ``.aln.tsv`` and refinement stats identical on the card and the
@@ -103,7 +116,8 @@ CPU; msa_eval's node rows within 1e-4 of the CPU's (or no farther from
 float64 than twice the CPU's), the truth MSA at recall and precision 1.0,
 and a CPU rerun of the library-mode alignment identical; three finite
 optimizer trials and a complete ``best_params.json``; no K1 or K2
-launch.  Before the last line it prints the card's name and power limit (as nvidia-smi
+launch; library mode's refinement realigns all take the fused device
+scatter and DP.  Before the last line it prints the card's name and power limit (as nvidia-smi
 gives them) and one JSON line of per-kernel numbers; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero without
 that line, and so does a machine without a CUDA device.  Imports only
@@ -168,7 +182,8 @@ from ginfinity_tpu_torch.parallel.search import (
     brute_force_topk,
     recall_at_k,
 )
-from ginfinity_tpu_torch.ops import pairhmm
+from ginfinity_tpu_torch.ops import library_pool, pairhmm, profile_pool
+from ginfinity_tpu_torch.ops.value_traceback import value_traceback, value_traceback_plain
 from ginfinity_tpu_torch.pipelines import (
     align,
     align_batch,
@@ -208,6 +223,7 @@ from ginfinity_tpu_torch.training.train import (
     triplet_loss_fn,
 )
 from ginfinity_tpu_torch.utils.device import disable_tf32
+from ginfinity_tpu_torch.utils import native
 from ginfinity_tpu_torch.utils.io import read_table, write_tsv
 
 WINDOW = 120
@@ -260,11 +276,11 @@ NODE_RNAS = 32             # structures of the forgi node-embedding run
 MSA_N, MSA_LMAX, MSA_DIM, MSA_SEED = 200, 300, 128, 5
 MSA_FLAGS = ["--alpha", "5", "--beta", "0", "--topk", "20",
              "--consistency-rounds", "1", "--max-pairs", "2000"]
-MSA_PROFILE_ROWS = MSA_N   # rows of the profile-mode run
 MSA_SMALL = (24, 120)      # the family of the card-vs-CPU .aln.tsv check
 MSA_EXACT_MERGES = 8       # leaf merges held to the numpy oracle DP
 MSA_SLAB_BATCHES = 2       # posterior batches re-run on the CPU
 MSA_SLAB_TOL = 1e-5        # their slabs, card vs CPU, max abs
+TB_SHAPE = (64, 384)       # merges and padded length of the traceback kernel's check
 # the MSA tools: refinement on the N = 200 family and on the small one,
 # msa_eval's family (make_family's seed, members, ancestor length), the
 # optimizer's trials and the region (ancestor coordinates) it scores
@@ -1219,11 +1235,20 @@ def oracle_walk(M, X, Y, La: int, Lb: int) -> list:
     return ops[::-1]
 
 
-def msa_run(src: str, out_prefix: str, extra: list, device: str) -> dict:
+def msa_run(src: str, out_prefix: str, extra: list, device: str, pool: bool = True) -> dict:
     """One run of the MSA CLI: wall seconds (the card drained), pairs,
-    stage seconds and the progressive stage's split from run_meta.json."""
-    t = quiet_main(msa.main, ["--input", src, "--out-prefix", out_prefix, "--device", device]
-                   + MSA_FLAGS + extra)
+    stage seconds, the progressive stage's path and split from
+    run_meta.json.  ``pool=False`` runs it under ``GINFINITY_MSA_POOL=0``."""
+    old = os.environ.pop("GINFINITY_MSA_POOL", None)
+    if not pool:
+        os.environ["GINFINITY_MSA_POOL"] = "0"
+    try:
+        t = quiet_main(msa.main, ["--input", src, "--out-prefix", out_prefix,
+                                  "--device", device] + MSA_FLAGS + extra)
+    finally:
+        os.environ.pop("GINFINITY_MSA_POOL", None)
+        if old is not None:
+            os.environ["GINFINITY_MSA_POOL"] = old
     with open(f"{out_prefix}.diagnostics/run_meta.json") as f:
         meta = json.load(f)
     refine = meta.get("refinement_split_sec", {})
@@ -1231,6 +1256,8 @@ def msa_run(src: str, out_prefix: str, extra: list, device: str) -> dict:
            "stage_seconds": meta["stage_times_sec"],
            "outside_stages_seconds": t - sum(meta["stage_times_sec"].values())
            - refine.get("total_s", 0.0),
+           "progressive_path": meta["progressive_path"],
+           "progressive_pool": meta.get("progressive_pool"),
            "progressive_split_seconds": meta["progressive_split_sec"],
            "progressive_rounds": meta["progressive_rounds"]}
     if "refinement" in meta:
@@ -1351,59 +1378,210 @@ def head_tsv(src: str, dst: str, rows: int) -> str:
     return dst
 
 
+def aln_rows(prefix: str) -> dict:
+    with open(f"{prefix}.aln.tsv", newline="") as f:
+        return {r["Name"]: r["Aligned"] for r in csv.DictReader(f, delimiter="\t")}
+
+
+def parse_check(src: str) -> dict:
+    """Check (i): the family's TSV read with the native scanner (its build
+    first, timed apart) and with the json path alone: seconds, and the
+    arrays identical."""
+    t0 = time.perf_counter()
+    native.build_library()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fast = msa.load_tsv(src, "Name", "node_embeddings")
+    fast_s = time.perf_counter() - t0
+    real = msa.parse_float_matrix
+    msa.parse_float_matrix = lambda cell: None  # every cell through json
+    try:
+        t0 = time.perf_counter()
+        slow = msa.load_tsv(src, "Name", "node_embeddings")
+        json_s = time.perf_counter() - t0
+    finally:
+        msa.parse_float_matrix = real
+    same = len(fast) == len(slow) and all(
+        a.name == b.name and a.emb.dtype == b.emb.dtype and a.emb.shape == b.emb.shape
+        and a.emb.tobytes() == b.emb.tobytes() for a, b in zip(fast, slow))
+    if not same:
+        raise AssertionError("the native scanner's arrays differ from the json path's")
+    return {"native_build_seconds": build_s, "tsv_parse_seconds": fast_s,
+            "tsv_parse_json_seconds": json_s, "arrays_identical": same, "records": len(fast)}, fast
+
+
+def accumulator_check(run: dict, dev) -> dict:
+    """Check (f), first half: the library run's own slabs and alignment,
+    split at the guide tree's root, scattered by ``_accumulate_device`` on
+    the card and on the CPU: max abs difference (0: the card adds in the
+    CPU's order)."""
+    lib, tree, aln, profiles = run["library"], run["tree"], run["aln"], run["profiles"]
+
+    def members(node):
+        return [node] if isinstance(node, int) else members(node[0]) + members(node[1])
+
+    left = set(members(tree[0]))
+    A = msa.extract_subprofile(aln, [m for m in aln.member_indices if m in left], profiles)
+    B = msa.extract_subprofile(aln, [m for m in aln.member_indices if m not in left], profiles)
+    S_card, las, lbs, _ = lib._accumulate_device([(A, B)])
+    cpu = msa.PosteriorLibrary(lib.pairs, None, None, lib.lengths,
+                               device_slabs=tuple(x.cpu() for x in lib.device_slabs))
+    S_cpu = cpu._accumulate_device([(A, B)])[0]
+    err = float((S_card.cpu() - S_cpu).abs().max())
+    nA, nB = len(A.member_indices), len(B.member_indices)
+    entries = sum(1 for a, b in lib.pairs if (a in left) != (b in left))
+    chunk = library_pool._entry_chunk_width(len(lib.pairs))
+    rec = {"merge": [nA, nB], "columns": [las[0], lbs[0]], "entries": entries,
+           "entry_chunks": -(-entries // chunk), "max_abs_err": err,
+           "nonzero_cells": int((S_cpu != 0).sum())}
+    if err != 0.0:
+        raise AssertionError(f"library accumulator, card vs CPU: max abs {err}")
+    return rec
+
+
 def msa_path(tmp: str, dev) -> dict:
     """``ginfinity-embed-msa`` on the N=200 / L<=300 family with the bench's
-    flags, in library mode (the default) and profile mode, with checks
-    (a)-(d); returns the phase's record and the family's records."""
-    forward_windows.launches = forward_windows.bf16_launches = 0
-    dp_wavefront.launches = wavefront_plain.launches = 0
+    flags, in library mode (the default) and profile mode, on the device
+    pools, with checks (a)-(i); returns the phase's record and the
+    family's records."""
     rec = {}
     t0 = time.perf_counter()
     src = msa_family_tsv(os.path.join(tmp, "family.tsv"), MSA_N, MSA_LMAX)
     rec["family"] = {"records": MSA_N, "lmax": MSA_LMAX, "dim": MSA_DIM, "seed": MSA_SEED,
                      "write_seconds": time.perf_counter() - t0,
                      "tsv_bytes": os.path.getsize(src)}
-    t0 = time.perf_counter()
-    records = msa.load_tsv(src, "Name", "node_embeddings")
-    rec["tsv_parse_seconds"] = time.perf_counter() - t0
+    rec["parse"], records = parse_check(src)  # check (i)
+    rec["tsv_parse_seconds"] = rec["parse"]["tsv_parse_seconds"]
     for r in records:
         r.emb = msa._l2_normalize_rows(r.emb)
 
-    lib = os.path.join(tmp, "lib", "msa")
-    rec["library"] = msa_run(src, lib, [], str(dev))
+    # the main path: both modes on the pools, every enqueue loop under the
+    # sync guard (check (g)); the library run's stage kept for check (f)
+    kept = {}
+    real_tree = msa.msa_from_tree
+
+    def keep(tree, profiles, *a, **kw):
+        aln = real_tree(tree, profiles, *a, **kw)
+        kept.update(tree=tree, profiles=profiles, library=kw.get("library"), aln=aln)
+        return aln
+
+    forward_windows.launches = forward_windows.bf16_launches = 0
+    dp_wavefront.launches = wavefront_plain.launches = 0
+    value_traceback.launches = 0
+    profile_pool.check_no_sync, guarded0 = True, profile_pool.guarded_loops
+    msa.msa_from_tree = keep
+    try:
+        lib = os.path.join(tmp, "lib", "msa")
+        rec["library"] = msa_run(src, lib, [], str(dev))
+        lib_run = dict(kept)
+        prof = os.path.join(tmp, "prof", "msa")
+        rec["profile"] = msa_run(src, prof, ["--dp-score", "profile"], str(dev))
+    finally:
+        msa.msa_from_tree = real_tree
+        profile_pool.check_no_sync = False
+    rec["traceback_kernel_launches"] = value_traceback.launches
+    rec["guarded_enqueue_loops"] = profile_pool.guarded_loops - guarded0
+    main_counts = (forward_windows.launches, forward_windows.bf16_launches,
+                   dp_wavefront.launches, wavefront_plain.launches)
     check_msa_outputs(lib, records)
-    prof_src = head_tsv(src, os.path.join(tmp, "family_head.tsv"), MSA_PROFILE_ROWS)
-    prof = os.path.join(tmp, "prof", "msa")
-    rec["profile"] = msa_run(prof_src, prof, ["--dp-score", "profile"], str(dev))
-    rec["profile"]["records"] = MSA_PROFILE_ROWS
-    check_msa_outputs(prof, records[:MSA_PROFILE_ROWS])
+    check_msa_outputs(prof, records)
+    rec["profile"]["records"] = MSA_N
+
+    # (e) the pools ran, with no overflow; the same inputs on the host path
+    paths = {m: rec[m]["progressive_path"] for m in ("library", "profile")}
+    if paths != {"library": "library_pool", "profile": "pool"} \
+            or rec["guarded_enqueue_loops"] != 2 or value_traceback.launches <= 0:
+        raise AssertionError(f"the N = {MSA_N} family's progressive paths {paths}, "
+                             f"{rec['guarded_enqueue_loops']} guarded loops, "
+                             f"{value_traceback.launches} traceback launches")
+    host = rec["pool_vs_host"] = {}
+    for mode, pre in (("library", lib), ("profile", prof)):
+        out = os.path.join(tmp, f"{mode}_host", "msa")
+        h = msa_run(src, out, ["--dp-score", mode], str(dev), pool=False)
+        a, b = aln_rows(pre), aln_rows(out)
+        host[mode] = {"pool_progressive_seconds": rec[mode]["stage_seconds"]
+                      ["progressive_alignment"],
+                      "host_progressive_seconds": h["stage_seconds"]["progressive_alignment"],
+                      "host_path": h["progressive_path"], "host_seconds": h["seconds"],
+                      "host_split_seconds": h["progressive_split_seconds"],
+                      "aln_tsv_rows_differing": sum(a[k] != b.get(k) for k in a),
+                      "rows": len(a)}
+
+    # (f) the accumulator, card against CPU; two card runs of the library pool
+    rec["accumulator_card_vs_cpu"] = accumulator_check(lib_run, dev)
+    again = os.path.join(tmp, "lib_again", "msa")
+    rec["library_again_seconds"] = msa_run(src, again, [], str(dev))["seconds"]
+    with open(f"{lib}.aln.tsv", "rb") as f, open(f"{again}.aln.tsv", "rb") as g:
+        rec["library_two_card_runs_identical"] = f.read() == g.read()
+    if not rec["library_two_card_runs_identical"]:
+        raise AssertionError("two card runs of the library pool wrote different .aln.tsv")
 
     rec["exact_dp_vs_oracle"] = msa_exact_check(records, dev)
     rec["slabs_card_vs_cpu"] = msa_slab_check(records, dev)
 
-    # check (c): a small family's alignments, card against the port's CPU run
+    # check (c): a small family's alignments, card against the port's CPU
+    # run, on the pools and on the host path
     small = msa_family_tsv(os.path.join(tmp, "small.tsv"), *MSA_SMALL)
     same = {}
     for mode in ("library", "profile"):
-        texts = []
-        for where in (str(dev), "cpu"):
-            out = os.path.join(tmp, f"small_{mode}_{where.replace(':', '')}", "msa")
-            msa_run(small, out, ["--dp-score", mode], where)
-            with open(f"{out}.aln.tsv", "rb") as f:
-                texts.append(f.read())
-        same[mode] = texts[0] == texts[1]
+        for pool in (True, False):
+            texts = []
+            for where in (str(dev), "cpu"):
+                tag = f"small_{mode}_{'pool' if pool else 'host'}_{where.replace(':', '')}"
+                out = os.path.join(tmp, tag, "msa")
+                msa_run(small, out, ["--dp-score", mode], where, pool=pool)
+                with open(f"{out}.aln.tsv", "rb") as f:
+                    texts.append(f.read())
+            same[f"{mode}_{'pool' if pool else 'host'}"] = texts[0] == texts[1]
     rec["small_family_aln_tsv_card_equals_cpu"] = same
     if not all(same.values()):
         raise AssertionError(f"small family .aln.tsv, card vs CPU: {same}")
 
-    # check (d): the MSA path launches neither kernel of the port
-    rec.update(window_kernel_launches=forward_windows.launches,
-               dp_kernel_launches=dp_wavefront.launches,
-               plain_dp_launches=wavefront_plain.launches)
-    if forward_windows.launches or forward_windows.bf16_launches or dp_wavefront.launches \
-            or wavefront_plain.launches:
+    # check (d): the MSA's main path launches neither K1 nor K2
+    rec.update(window_kernel_launches=main_counts[0], dp_kernel_launches=main_counts[2],
+               plain_dp_launches=main_counts[3])
+    if any(main_counts) or forward_windows.launches or dp_wavefront.launches:
         raise AssertionError("the MSA path launched K1 or K2")
     return rec, records
+
+
+def traceback_check(dev) -> dict:
+    """Check (h): the traceback kernel against its plain version on the
+    card, on the states of random and of integer (tie-rich) scores at
+    B = 64, P = 384, and its times; launches here are not the path's."""
+    rng = np.random.default_rng(SEED + 11)
+    B, P = TB_SHAPE
+    rec, errs = {}, []
+    for name, ties in (("random", False), ("ties", True)):
+        S = rng.normal(size=(B, P, P)).astype(np.float32)
+        if ties:
+            S = np.round(S * 2).astype(np.float32)
+        l1 = torch.from_numpy(rng.integers(P // 2, P + 1, B)).to(dev)
+        l2 = torch.from_numpy(rng.integers(P // 2, P + 1, B)).to(dev)
+        l1[0] = l2[0] = P
+        ST = pairhmm._profile_states(torch.from_numpy(S).to(dev), l1, l2, -1.0, -0.5)
+        got = value_traceback(ST, l1, l2)
+        want = value_traceback_plain(ST, l1, l2)
+        torch.cuda.synchronize()
+        diff = int((got.int() - want.int()).abs().max())
+        steps = int((got != 3).sum())
+        rec[name] = {"codes_max_abs_err": diff, "codes_differing": int((got != want).sum()),
+                     "path_steps": steps}
+        errs.append(diff)
+        if diff:
+            raise AssertionError(f"traceback kernel vs plain ({name}): codes differ")
+        if name == "random":
+            ms = cuda_ms(lambda: value_traceback(ST, l1, l2), 20)
+            plain_ms = cuda_ms(lambda: value_traceback_plain(ST, l1, l2), 2)
+            # bytes: three floats read per step walked, a code byte written per
+            # step, the lengths read; a handful of compares per step
+            nbytes = 12 * steps + B * 2 * P + 8 * B
+            bound_ms = max(nbytes / HBM_BYTES_PER_S, 10 * steps / 67e12) * 1e3
+            rec.update(B=B, P=P, ms=ms, plain_ms=plain_ms, bytes=nbytes, bound_ms=bound_ms,
+                       bound_by="bytes", chain_steps=2 * P,
+                       ns_per_chain_step=ms * 1e6 / (2 * P), states_bytes=ST.numel() * 4)
+    rec["max_abs_err"] = max(errs)
+    return rec
 
 
 def truth_msa(members) -> dict:
@@ -1484,6 +1662,10 @@ def msa_tools_path(tmp: str, dev, records, cfg, params, state) -> dict:
     check_msa_outputs(out, records[:MSA_REFINE_ROWS])
     if not r["refinement"]["sp_final"] >= r["refinement"]["sp_initial"] - 1e-6:
         raise AssertionError(f"refinement lowered the SP score: {r['refinement']}")
+    # library mode's realigns take the fused device scatter + DP
+    if r["refinement_split_seconds"]["fused"] != MSA_REFINE_ITERS:
+        raise AssertionError(f"{r['refinement_split_seconds']['fused']} of "
+                             f"{MSA_REFINE_ITERS} realigns took the fused merge_ops")
 
     parts["a_refine_full"] = time.perf_counter() - t_part
     t_part = time.perf_counter()
@@ -2297,8 +2479,13 @@ def main() -> int:
         with phase("msa_path", {"card": card}) as rec:
             msa_rec, msa_records = msa_path(tmp, dev)
             rec.update(msa_rec)
+            tb_launches = msa_rec["traceback_kernel_launches"]
         with phase("msa_tools_path", {"card": card}) as rec:
             rec.update(msa_tools_path(tmp, dev, msa_records, cfg, main_params, main_state))
+
+    with phase("traceback_kernel_vs_plain", {"card": card}) as rec:
+        tb = traceback_check(dev)
+        rec.update(tb)
 
     with tempfile.TemporaryDirectory() as tmp, phase("train_path", {"card": card}) as rec:
         rec.update(train_path(tmp, dev))
@@ -2404,6 +2591,18 @@ def main() -> int:
         "plain_ms": k2["plain_ms"],
         "bound_ms": k2["bound_ms"],
         "bound_by": k2["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "value_traceback",
+        "route": "cuda",
+        "source": "ginfinity_tpu_torch/ops/csrc/value_traceback.cu",
+        "replaces": "ginfinity_tpu/ops/pairhmm.py:470",
+        "launches": tb_launches,
+        "max_abs_err": tb["max_abs_err"],
+        "ms": tb["ms"],
+        "plain_ms": tb["plain_ms"],
+        "bound_ms": tb["bound_ms"],
+        "bound_by": tb["bound_by"],
         "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {

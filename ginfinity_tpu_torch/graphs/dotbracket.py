@@ -1,8 +1,9 @@
 """Dot-bracket parsing: validation, pair tables, loop metadata.
 
 Port of ``ginfinity_tpu/graphs/dotbracket.py``.  The pair table is the
-pure-Python parser (``_py_pair_table`` there); the JAX package's
-optional native library is not loaded.
+native scan (``utils/native.py``, built at first use), as in the JAX
+package; ``_py_pair_table`` is its pure-Python twin, kept as the
+reference the tests hold the scan to.
 
 Supported notation: ``.`` unpaired, ``()``, and pseudoknot annotations
 ``[]``, ``{}``, ``<>`` plus matching upper/lowercase letter pairs
@@ -12,6 +13,8 @@ Supported notation: ``.`` unpaired, ``()``, and pseudoknot annotations
 from __future__ import annotations
 
 import numpy as np
+
+from ginfinity_tpu_torch.utils.native import native_pair_table
 
 _OPENERS = {"(": 0, "[": 1, "{": 2, "<": 3}
 _CLOSERS = {")": "(", "]": "[", "}": "{", ">": "<"}
@@ -28,6 +31,14 @@ def pair_table(structure: str, strict: bool = True) -> np.ndarray | None:
 
     Returns ``None`` for malformed input, or raises if ``strict``.
     """
+    pt = native_pair_table(structure)
+    if pt is None and strict:
+        raise ValueError(f"Invalid dot-bracket string: {structure!r}")
+    return pt
+
+
+def _py_pair_table(structure: str, strict: bool = True) -> np.ndarray | None:
+    """The pure-Python scan: :func:`pair_table`'s results."""
     n = len(structure)
     pt = np.full(n, -1, dtype=np.int32)
     stacks: dict[str, list[int]] = {}

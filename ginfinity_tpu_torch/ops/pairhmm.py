@@ -44,10 +44,15 @@ X, M, Y, so that ``(X, M)`` at ``i-1`` and ``(M, Y)`` at ``i`` of the
 previous diagonal are two views of one tensor.
 
 Padding is masked by the real lengths and changes no real cell, so a
-batch runs at its own largest lengths; the JAX package's shape ladders
-(``_pow2_batch``, ``_profile_pad_shape``) are compile-cache machinery
-and are not ported.  The value traceback runs on the host over the
-dense M/X/Y, downloaded once per batch.
+batch runs at its own largest lengths; the JAX package's shape ladder
+``_profile_pad_shape`` is compile-cache machinery and is not ported.
+The host path's value traceback runs on the host over the dense M/X/Y,
+downloaded once per batch; the device pools' (``_profile_ops_device``,
+``_profile_ops_exact_device``) runs on the states where they lie
+(``ops/value_traceback.py``, a CUDA kernel on the card) and returns the
+op codes on the device.  The profile DP makes its constants with fills
+and its shapes' loops from shapes alone, so a level enqueues without a
+synchronisation.
 """
 
 from __future__ import annotations
@@ -55,6 +60,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ginfinity_tpu_torch.ops.value_traceback import value_traceback
 from ginfinity_tpu_torch.utils.device import resolve_device
 
 NEG = float(np.float32(-1e30))  # the float32 value, as a Python float
@@ -95,8 +101,14 @@ def _lse_masked_rows(vals, mask):
 
 
 def _f32(x, dev, dtype=_F32) -> torch.Tensor:
-    """The float32 value of ``x`` as a 0-dim tensor of ``dtype``."""
-    return torch.tensor(float(np.float32(x)), dtype=dtype, device=dev)
+    """The float32 value of ``x`` as a 0-dim tensor of ``dtype`` (a fill:
+    no host-to-device copy)."""
+    return torch.full((), float(np.float32(x)), dtype=dtype, device=dev)
+
+
+def _pow2_batch(b: int) -> int:
+    """The next power of two >= ``b`` (>= 1): the pools' batch padding."""
+    return 1 << max(0, int(b) - 1).bit_length()
 
 
 def _fma_chain(go: float, ge: float, k: torch.Tensor, dtype=_F32) -> torch.Tensor:
@@ -109,7 +121,8 @@ def _gap_offsets(go, ge, dtype, dev) -> torch.Tensor:
     """(ge, go, go, ge) as [4, 1, 1]: the adds of (X, M) at i-1 and
     (M, Y) at i in the X/Y updates."""
     g_o, g_e = float(np.float32(go)), float(np.float32(ge))
-    return torch.tensor([g_e, g_o, g_o, g_e], dtype=dtype, device=dev)[:, None, None]
+    ends = torch.arange(4, device=dev) % 3 == 0  # (ge, go, go, ge), made by a select
+    return torch.where(ends, g_e, g_o).to(dtype)[:, None, None]
 
 
 def _shear(L: torch.Tensor, D: int, shift: int) -> torch.Tensor:
@@ -399,7 +412,7 @@ def _profile_states(S, l1, l2, go, ge, C=None):
         chain = _fma_chain(go, ge, d, dt)
         y_i0 = torch.where(d[:, None] <= l2[None, :], chain[:, None], NEG)
         x_j0 = torch.where(d[:, None] <= l1[None, :], chain[:, None], NEG)
-    neg = torch.tensor(NEG, dtype=dt, device=dev)
+    neg = torch.full((), NEG, dtype=dt, device=dev)
     neg3 = torch.full((3, B, L1 + 1), NEG, dtype=dt, device=dev)
     for k in range(1, D + 1):
         prev2 = ST[k - 2, :, :, :-1] if k >= 2 else neg3
@@ -521,17 +534,41 @@ def _profile_ops_from_split_scores(S, C, l1, l2, go, ge):
     return _value_traceback(M, X, Y, l1.cpu().numpy(), l2.cpu().numpy())
 
 
-def _profile_ops_exact_impl(MUA, MUB, STA, STB, l1, l2, go, ge,
-                            MBA=None, MBB=None, sw=None):
-    """Reference-exact profile DP + value traceback from raw column
-    embeddings.  Dual modality in the reference's op order too:
-    ``s = (1 - w) * s_struct + w * s_base``, each term rounded."""
+def _exact_scores(MUA, MUB, MBA=None, MBB=None, sw=None):
+    """The exact DP's column scores.  Dual modality in the reference's op
+    order too: ``s = (1 - w) * s_struct + w * s_base``, each term
+    rounded."""
     S = _seq_dot_scores(MUA, MUB)
     if MBA is not None:
         Sb = _seq_dot_scores(MBA, MBB)
         w = np.float32(sw)
         S = S * _f32(np.float32(1.0) - w, S.device) + Sb * _f32(w, S.device)
+    return S
+
+
+def _profile_ops_exact_impl(MUA, MUB, STA, STB, l1, l2, go, ge,
+                            MBA=None, MBB=None, sw=None):
+    """Reference-exact profile DP + value traceback from raw column
+    embeddings."""
+    S = _exact_scores(MUA, MUB, MBA, MBB, sw)
     return _profile_ops_from_split_scores(S, _comp_bonus(STA, STB), l1, l2, go, ge)
+
+
+def _profile_ops_device(S, l1, l2, go, ge) -> torch.Tensor:
+    """Fast profile DP + value traceback, both on ``S``'s device: codes
+    ``[B, L1+L2]`` int8, reverse order, padded with 3 (the JAX package's
+    ``_profile_ops_impl``)."""
+    return value_traceback(_profile_states(S, l1, l2, go, ge), l1, l2)
+
+
+def _profile_ops_exact_device(MUA, MUB, STA, STB, l1, l2, go, ge,
+                              MBA=None, MBB=None, sw=None) -> torch.Tensor:
+    """Reference-exact profile DP + value traceback on the device, codes
+    as :func:`_profile_ops_device` (the JAX package's
+    ``_profile_ops_exact_impl``)."""
+    S = _exact_scores(MUA, MUB, MBA, MBB, sw)
+    ST = _profile_states(S, l1, l2, go, ge, _comp_bonus(STA, STB))
+    return value_traceback(ST, l1, l2)
 
 
 def _lengths(pairs) -> tuple[np.ndarray, np.ndarray]:

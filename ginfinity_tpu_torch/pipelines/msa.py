@@ -11,21 +11,27 @@ the same flags (plus ``--device``), stages and output files.
 6. consistency rounds on the slabs, on the device, then the guide-tree
    distances 1 - mean(kept posteriors)
 7. guide tree (NJ / UPGMA), host numpy
-8. progressive alignment, one batched profile-DP call per tree level on
-   the device: library mode scores columns by the consistency-transformed
-   posteriors (the host scorer) and runs the fast DP; profile mode runs
-   the reference-exact DP on the column embeddings
+8. progressive alignment on a device pool: profile mode through
+   ``ops/profile_pool.py`` (the reference-exact DP on the column
+   embeddings, merges on the device), library mode through
+   ``ops/library_pool.py`` (the consistency-transformed posteriors
+   scattered from the slabs where the consistency stage left them, the
+   fast DP); every level enqueued without a read-back, the op codes
+   downloaded once and replayed on the host for the aligned rows.  A
+   merge that outgrows the pool's padded length sends the stage to the
+   levelized loop: in library mode each level scored and aligned on the
+   device, fused; in profile mode one batched DP per level
 9. ``--refine-iters``: split-and-realign refinement (leave-one-out, the
-   guide tree's partitions, then seeded random splits), scored on the
-   host, each realign one single-merge DP on the device
+   guide tree's partitions, then seeded random splits); in library mode
+   each realign is one fused device scatter plus DP
+   (``PosteriorLibrary.merge_ops``)
 10. FASTA / Stockholm / TSV outputs and diagnostics
 
-This is the JAX package's host-driven levelized path (its
-``GINFINITY_MSA_POOL=0``), which writes the same files as its device
-pools and its fused refinement scorer; ``GINFINITY_MSA_POOL`` is
-accepted and ignored.  The pools (``ops/profile_pool.py``,
-``ops/library_pool.py``) are not ported (ROADMAP queue 1, item 9c);
-``--data-parallel`` over several cards is item 11.
+``GINFINITY_MSA_POOL=0`` turns every device-resident merge and scoring
+path off, as in the JAX package: the progressive stage then scores each
+merge on the host (library mode, float64 sums), runs one batched DP per
+level and traces back and merges on the host, and refinement scores on
+the host.  ``--data-parallel`` over several cards is ROADMAP item 11.
 """
 
 from __future__ import annotations
@@ -43,13 +49,25 @@ import numpy as np
 import torch
 
 from ginfinity_tpu_torch.graphs.batching import _round_capacity
+from ginfinity_tpu_torch.ops.library_pool import (
+    accumulate_pair_scores,
+    build_library_schedule,
+    merge_ops_from_scores,
+    run_library_pool,
+)
 from ginfinity_tpu_torch.ops.pairhmm import (
     _pair_posteriors_from_embs,
     profile_align_batch_ops,
     profile_align_batch_ops_exact,
 )
+from ginfinity_tpu_torch.ops.profile_pool import (
+    library_pool_padded_len,
+    pool_padded_len,
+    run_progressive_pool,
+)
 from ginfinity_tpu_torch.utils.device import disable_tf32, resolve_device
 from ginfinity_tpu_torch.utils.io import cell_text, read_table
+from ginfinity_tpu_torch.utils.native import parse_float_matrix
 
 _F64 = torch.float64
 
@@ -82,7 +100,11 @@ def _json_loads_maybe(x):
 
 
 def _parse_matrix_cell(cell) -> Optional[np.ndarray]:
-    """JSON matrix cell -> float32 [L, D], or None if malformed."""
+    """JSON matrix cell -> float32 [L, D], or None if malformed: the native
+    strtod scanner, else ``json`` for anything it rejects."""
+    fast = parse_float_matrix(cell)
+    if fast is not None:
+        return fast
     raw = _json_loads_maybe(cell)
     if raw is None:
         return None
@@ -190,6 +212,14 @@ def apply_center_trim(records, fraction):
 
 # ==========================================================================
 # Pair selection, calibration, sparsification
+
+
+def _pool_env_enabled() -> bool:
+    """``GINFINITY_MSA_POOL=0`` turns off every device-resident merge and
+    scoring path (the level pools, the fused fallback, the device scorer,
+    the fused refinement), so a run can be held to the independent host
+    implementations."""
+    return os.environ.get("GINFINITY_MSA_POOL", "1") != "0"
 
 
 def _profile_dp_exact_enabled() -> bool:
@@ -502,8 +532,12 @@ class PosteriorLibrary:
     progressive alignment: columns score by the mean posterior match
     probability between their member positions.  Row-slab layout per
     pair (a, b): ``vals[i, t]`` is the posterior between a's position i
-    and b's position ``idx[i, t]`` (zero entries unused).  Device slabs
-    are downloaded once, on first use."""
+    and b's position ``idx[i, t]`` (zero entries unused).
+
+    With ``device_slabs`` (the ``[T, W, k]`` slabs the consistency stage
+    holds on its device) the scores are scattered there
+    (``ops/library_pool.py``) and the host copy is downloaded only when
+    the host scorer runs (``GINFINITY_MSA_POOL=0``)."""
 
     def __init__(self, pairs, vals, idx, lengths, device_slabs=None):
         self.pairs = list(pairs)
@@ -512,6 +546,7 @@ class PosteriorLibrary:
         self._vals = vals
         self._idx = idx
         self._by_pair: Optional[dict] = None
+        self._pair_arrays = None  # (pair_a, pair_b) on the slabs' device
 
     @property
     def by_pair(self) -> dict:
@@ -526,7 +561,79 @@ class PosteriorLibrary:
         return self._by_pair
 
     def score_matrix(self, A: Profile, B: Profile) -> np.ndarray:
+        """Library score matrix [La, Lb] of merging A and B: scattered on
+        the slabs' device (float32, in update order) when they are there
+        and the pools are on, else the host loop (float64 sums)."""
+        if self.device_slabs is not None and _pool_env_enabled():
+            return self._score_matrix_device(A, B)
         return self._score_matrix_host(A, B)
+
+    def pair_arrays(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """The pairs' (a, b) members as int64 tensors on the slabs' device."""
+        if self._pair_arrays is None:
+            dev = self.device_slabs[0].device
+            self._pair_arrays = tuple(
+                torch.tensor([p[k] for p in self.pairs], dtype=torch.int64).to(dev)
+                for k in (0, 1))
+        return self._pair_arrays
+
+    def _accumulate_device(self, merges: list[tuple[Profile, Profile]]):
+        """One level of merges' library scores on the slabs' device.
+
+        ``merges``: (A, B) pairs with disjoint member sets (one tree level,
+        or one refinement realign).  Returns the un-normalised [Bp, P, P]
+        accumulator and the per-merge (La, Lb, nA nB) lists."""
+        las = [A.mu_struct.shape[0] for A, _ in merges]
+        lbs = [B.mu_struct.shape[0] for _, B in merges]
+        denoms = [len(A.member_indices) * len(B.member_indices) for A, B in merges]
+        side_of = {}  # member -> (lane, 0 = A / 1 = B)
+        for lane, (A, B) in enumerate(merges):
+            for x in A.member_indices:
+                side_of[x] = (lane, 0)
+            for y in B.member_indices:
+                side_of[y] = (lane, 1)
+        entries = []
+        for t, (a, b) in enumerate(self.pairs):
+            sa, sb = side_of.get(a), side_of.get(b)
+            if sa is None or sb is None or sa[0] != sb[0] or sa[1] == sb[1]:
+                continue
+            # owner (slab row side) = a; flip when a sits in the B child:
+            # the rule of library_pool.build_library_schedule too
+            entries.append((sa[0], t, 1 if sa[1] == 1 else 0))
+        Cv, Ci = self.device_slabs
+        P = _round_capacity(max(max(las), max(lbs), int(Cv.shape[1])))
+        pos2col = np.tile(np.arange(P, dtype=np.int64), (len(self.lengths), 1))
+        for A, B in merges:
+            for prof in (A, B):
+                for x in prof.member_indices:
+                    cols = _member_pos_to_col(prof.aligned_chars[x])
+                    pos2col[x, : cols.size] = cols
+        pa, pb = self.pair_arrays()
+        S = accumulate_pair_scores(Cv, Ci, pa, pb, torch.from_numpy(pos2col).to(Cv.device),
+                                   entries, P, n_lanes=len(merges))
+        return S, las, lbs, denoms
+
+    def _score_matrix_device(self, A: Profile, B: Profile) -> np.ndarray:
+        S, las, lbs, denoms = self._accumulate_device([(A, B)])
+        return (S[0, : las[0], : lbs[0]].cpu().numpy() / denoms[0]).astype(np.float32)
+
+    def merge_ops(self, A: Profile, B: Profile, gap_open, gap_extend):
+        """One merge scored and aligned on the slabs' device, fused: only
+        its op codes download.  Forward-order codes, or ``None`` without
+        device slabs or under ``GINFINITY_MSA_POOL=0``."""
+        ops = self.merge_ops_level([(A, B)], gap_open, gap_extend)
+        return None if ops is None else ops[0]
+
+    def merge_ops_level(self, merges, gap_open, gap_extend):
+        """A level of merges scored and aligned on the slabs' device in one
+        accumulator and one batched DP; forward-order codes per merge, or
+        ``None`` without device slabs or under ``GINFINITY_MSA_POOL=0``."""
+        if self.device_slabs is None or not merges or not _pool_env_enabled():
+            return None
+        S, las, lbs, denoms = self._accumulate_device(merges)
+        pad = S.shape[0] - len(merges)  # padding lanes: all-zero matrices, dropped
+        return merge_ops_from_scores(S, denoms + [1] * pad, las + [1] * pad,
+                                     lbs + [1] * pad, gap_open, gap_extend)[: len(merges)]
 
     def _score_matrix_host(self, A: Profile, B: Profile) -> np.ndarray:
         La = A.mu_struct.shape[0]
@@ -669,20 +776,8 @@ def _build_levels(internals):
     return levels
 
 
-def msa_from_tree(tree, seq_profiles, gap_open, gap_extend, seq_weight=0.0,
-                  scorer=None, device=None, split: Optional[dict] = None) -> Profile:
-    """Progressive alignment, levelized: each round batches every merge
-    whose children are ready into one profile-DP call on ``device``.
-
-    ``scorer`` (library mode) gives each merge's score matrix, aligned by
-    the fast DP; without it, profile mode runs the reference-exact DP on
-    the column embeddings (the fast DP on ``_profile_score_matrix`` under
-    ``GINFINITY_PROFILE_DP=fast``).  ``split``, when given, receives the
-    host clock's seconds of scoring, DP and merging, and the rounds'
-    (batch, longest A, longest B)."""
-    if isinstance(tree, int):
-        return seq_profiles[tree]
-
+def _walk_internals(tree) -> list[tuple]:
+    """The internal nodes of ``tree`` in post-order."""
     internals: list[tuple] = []
 
     def walk(node):
@@ -693,6 +788,159 @@ def msa_from_tree(tree, seq_profiles, gap_open, gap_extend, seq_weight=0.0,
         internals.append(node)
 
     walk(tree)
+    return internals
+
+
+def _replay(node_levels, ops_levels, seq_profiles, split) -> dict:
+    """The host replay of a pool run's op codes: every merge through
+    ``_merge_from_ops``, so the aligned rows and profiles are the host
+    path's.  Returns the resolved profiles by node id."""
+    t0 = time.perf_counter()
+    resolved: dict[int, Profile] = {}
+
+    def get(node):
+        return seq_profiles[node] if isinstance(node, int) else resolved[id(node)]
+
+    rounds = []
+    for lv, ops_b in zip(node_levels, ops_levels):
+        pairs = [(get(n[0]), get(n[1])) for n in lv]
+        for n, (a, b), opsr in zip(lv, pairs, ops_b):
+            resolved[id(n)] = _merge_from_ops(a, b, opsr[opsr != 3][::-1])
+        rounds.append((len(lv), max(a.mu_struct.shape[0] for a, _ in pairs),
+                       max(b.mu_struct.shape[0] for _, b in pairs)))
+    split.update(replay_s=time.perf_counter() - t0, rounds=rounds)
+    return resolved
+
+
+def _msa_from_tree_pool(tree, internals, seq_profiles, gap_open, gap_extend, seq_weight,
+                        device, split) -> Optional[Profile]:
+    """Profile-mode progressive alignment on the device pool
+    (``ops/profile_pool.py``), then the host replay.  ``None`` when a
+    merge outgrows the padded length."""
+    N = len(seq_profiles)
+    lens = [p.mu_struct.shape[0] for p in seq_profiles]
+    P = pool_padded_len(max(lens))
+    d = seq_profiles[0].mu_struct.shape[1]
+    has_base = seq_weight > 0.0 and all(p.mu_base is not None for p in seq_profiles)
+    leaf_mu = np.zeros((N, P, d), np.float32)
+    leaf_stem = np.zeros((N, P), np.float32)
+    leaf_base = (np.zeros((N, P, seq_profiles[0].mu_base.shape[1]), np.float32)
+                 if has_base else None)
+    for i, p in enumerate(seq_profiles):
+        leaf_mu[i, : lens[i]] = p.mu_struct
+        leaf_stem[i, : lens[i]] = p.stem
+        if has_base:
+            leaf_base[i, : lens[i]] = p.mu_base
+    slot = {id(n): N + k for k, n in enumerate(internals)}
+
+    def slot_of(node):
+        return node if isinstance(node, int) else slot[id(node)]
+
+    node_levels = _build_levels(internals)
+    levels = [tuple(np.asarray([slot_of(n[c]) if c < 2 else slot[id(n)] for n in lv], np.int64)
+                    for c in range(3)) for lv in node_levels]
+    pool: dict = {"P": P}
+    out = run_progressive_pool(levels, leaf_mu, leaf_base, leaf_stem, np.asarray(lens), P,
+                               gap_open, gap_extend, seq_weight,
+                               exact=_profile_dp_exact_enabled(), device=device, stats=pool)
+    split["pool"] = pool
+    if out is None:
+        return None
+    return _replay(node_levels, out[0], seq_profiles, split)[id(tree)]
+
+
+def _msa_from_tree_pool_library(tree, internals, seq_profiles, library, gap_open,
+                                gap_extend, split) -> Optional[Profile]:
+    """Library-mode progressive alignment on the device pool
+    (``ops/library_pool.py``), scored from the slabs in place, then the
+    host replay; one retry a rung higher on overflow.  ``None`` without
+    device slabs or when the retry overflows too."""
+    if getattr(library, "device_slabs", None) is None:
+        return None
+    N = len(seq_profiles)
+    lens = [p.mu_struct.shape[0] for p in seq_profiles]
+    slot = {id(n): N + k for k, n in enumerate(internals)}
+
+    def slot_of(node):
+        return node if isinstance(node, int) else slot[id(node)]
+
+    members_cache: dict[int, list[int]] = {}
+
+    def members_of(node):
+        if isinstance(node, int):
+            return [node]
+        r = members_cache.get(id(node))
+        if r is None:
+            r = members_cache[id(node)] = members_of(node[0]) + members_of(node[1])
+        return r
+
+    node_levels = _build_levels(internals)
+    schedule = build_library_schedule(node_levels, slot_of, N, library.pairs, N, members_of)
+    pa = np.asarray([a for a, _ in library.pairs], np.int64)
+    pb = np.asarray([b for _, b in library.pairs], np.int64)
+    P = library_pool_padded_len(max(lens))
+    # the first rung, then one rung higher (1.5x the longest leaf) on overflow
+    rungs = [P] + [P2 for P2 in [_round_capacity(max(lens) + max(12, max(lens) // 2))]
+                   if P2 > P]
+    out = None
+    for P in rungs:
+        pool: dict = {"P": P}
+        out = run_library_pool(schedule, *library.device_slabs, pa, pb, np.asarray(lens),
+                               len(internals), P, gap_open, gap_extend, stats=pool)
+        split.setdefault("pool_runs", []).append(pool)
+        split["pool"] = pool
+        if out is not None:
+            break
+    if out is None:
+        return None
+    return _replay(node_levels, out[0], seq_profiles, split)[id(tree)]
+
+
+def msa_from_tree(tree, seq_profiles, gap_open, gap_extend, seq_weight=0.0,
+                  scorer=None, library=None, device=None,
+                  split: Optional[dict] = None) -> Profile:
+    """Progressive alignment.
+
+    With the pools on (``GINFINITY_MSA_POOL`` unset), profile mode
+    (``scorer`` None) runs on the profile pool on ``device`` and library
+    mode (a ``library`` with device slabs) on the library pool on the
+    slabs' device.  Otherwise, or when a pool overflows, the levelized
+    loop: each round batches every merge whose children are ready into
+    one DP call on ``device``.  There library mode scores each level on
+    the slabs' device, fused (``PosteriorLibrary.merge_ops_level``), when
+    the pools are on, else by ``scorer`` with the fast DP; profile mode
+    runs the reference-exact DP on the column embeddings (the fast DP on
+    ``_profile_score_matrix`` under ``GINFINITY_PROFILE_DP=fast``).
+
+    ``split``, when given, receives ``path`` (``pool``, ``library_pool``,
+    ``overflow->host`` or ``host``), a pool run's ``pool`` stats
+    (enqueue and device-plus-download seconds, levels, steps) and replay
+    seconds, the loop's host-clock seconds of scoring, DP and merging,
+    and the rounds' (batch, longest A, longest B)."""
+    split = {} if split is None else split
+    if isinstance(tree, int):
+        split["path"] = "host"
+        return seq_profiles[tree]
+    internals = _walk_internals(tree)
+    pool_env = _pool_env_enabled()
+    tried = None
+    if pool_env and scorer is None:
+        tried = "pool"
+        prof = _msa_from_tree_pool(tree, internals, seq_profiles, gap_open, gap_extend,
+                                   seq_weight, resolve_device(device), split)
+    elif pool_env and library is not None:
+        tried = "library_pool"
+        prof = _msa_from_tree_pool_library(tree, internals, seq_profiles, library, gap_open,
+                                           gap_extend, split)
+    if tried is not None:
+        if prof is not None:
+            split["path"] = tried
+            return prof
+        if "pool" in split:
+            print(f"[progressive] the {tried} overflowed (a merge outgrew P = "
+                  f"{split['pool']['P']}): levelized loop")
+    split["path"] = "overflow->host" if "pool" in split else "host"
+
     resolved: dict[int, Profile] = {}
 
     def get(node):
@@ -703,10 +951,19 @@ def msa_from_tree(tree, seq_profiles, gap_open, gap_extend, seq_weight=0.0,
     t_score = t_dp = t_merge = 0.0
     rounds = []
     exact = _profile_dp_exact_enabled()
+    # the fused level path only with the pools on: GINFINITY_MSA_POOL=0
+    # keeps the per-merge scorer and the batched DP
+    lib_fused = pool_env and library is not None and library.device_slabs is not None
     for ready in _build_levels(internals):
         pairs = [(get(n[0]), get(n[1])) for n in ready]
         t0 = time.perf_counter()
-        if scorer is not None:
+        all_ops = library.merge_ops_level(pairs, gap_open, gap_extend) if lib_fused else None
+        t1 = time.perf_counter()
+        if all_ops is not None:
+            # scatter and DP are one device call: the span counts as DP
+            t_dp += t1 - t0
+            t0 = t1
+        elif scorer is not None:
             mats = [scorer(a, b) for a, b in pairs]
             t1 = time.perf_counter()
             all_ops = profile_align_batch_ops(mats, gap_open, gap_extend, device=device)
@@ -732,8 +989,7 @@ def msa_from_tree(tree, seq_profiles, gap_open, gap_extend, seq_weight=0.0,
         t_merge += t3 - t2
         rounds.append((len(ready), max(a.mu_struct.shape[0] for a, _ in pairs),
                        max(b.mu_struct.shape[0] for _, b in pairs)))
-    if split is not None:
-        split.update(score_s=t_score, dp_s=t_dp, merge_s=t_merge, rounds=rounds)
+    split.update(score_s=t_score, dp_s=t_dp, merge_s=t_merge, rounds=rounds)
     return resolved[id(tree)]
 
 
@@ -866,6 +1122,7 @@ def iterative_refinement(
     gap_extend: float,
     seq_weight: float = 0.0,
     scorer=None,
+    merge_ops_fn=None,
     partitions: list[frozenset] | None = None,
     min_gain: float = 0.0,
     device=None,
@@ -875,17 +1132,22 @@ def iterative_refinement(
 
     Schedule: a leave-one-out sweep over every member, then the given
     ``partitions`` (:func:`tree_partitions`), then random binary splits
-    (``rng.integers`` for the size, then ``rng.choice``).  Each realign is
-    one single-merge DP on ``device``: the fast DP on ``scorer(A, B)``
-    (library mode), else :func:`merge_profiles`.  The JAX package's fused
-    device scorer and DP (``merge_ops_fn``) writes the same alignments and
-    has no counterpart here.
+    (``rng.integers`` for the size, then ``rng.choice``).  Each realign in
+    library mode is ``merge_ops_fn(A, B, go, ge)``
+    (``PosteriorLibrary.merge_ops``: the scatter and the DP fused on the
+    slabs' device), or, when that is not given or returns ``None``, the
+    fast DP on ``scorer(A, B)`` on ``device``; in profile mode
+    :func:`merge_profiles`.
 
     ``min_gain``: a realign is kept only when it improves the score by
     more than ``min_gain * max(1, |current score|)``; 0 keeps any
     improvement.  ``split``, when given, receives the host clock's
-    seconds of extraction, scoring, DP, merging and ``sp_score``."""
+    seconds of extraction, scoring, DP (a fused realign's whole span),
+    merging and ``sp_score``, and with ``merge_ops_fn`` ``fused``, the
+    realigns it took."""
     t = dict(extract_s=0.0, score_s=0.0, dp_s=0.0, merge_s=0.0, sp_score_s=0.0)
+    if merge_ops_fn is not None:
+        t["fused"] = 0
     t0 = time.perf_counter()
     best = aln
     best_score = sp_score(best, seq_profiles)
@@ -915,9 +1177,14 @@ def iterative_refinement(
         B = extract_subprofile(best, part_b, seq_profiles)
         t1 = time.perf_counter()
         if scorer is not None:
-            S = scorer(A, B)
-            t2 = time.perf_counter()
-            ops = profile_align_batch_ops([S], gap_open, gap_extend, device=device)[0]
+            ops = merge_ops_fn(A, B, gap_open, gap_extend) if merge_ops_fn else None
+            t2 = t1  # a fused realign's span counts as DP
+            if ops is not None:
+                t["fused"] += 1
+            else:
+                S = scorer(A, B)
+                t2 = time.perf_counter()
+                ops = profile_align_batch_ops([S], gap_open, gap_extend, device=device)[0]
             t3 = time.perf_counter()
             cand = _merge_from_ops(A, B, ops)
         else:
@@ -1269,7 +1536,7 @@ def main(argv=None):
     profiles = initial_profiles(records)
     split: dict = {}
     aln = msa_from_tree(tree, profiles, dp_go, dp_ge, seq_weight=float(args.seq_weight),
-                        scorer=scorer, device=device, split=split)
+                        scorer=scorer, library=library, device=device, split=split)
     t_stage = stage_done("progressive_alignment", t_stage)
     refine_stats = None
     refine_split: dict = {}
@@ -1279,6 +1546,7 @@ def main(argv=None):
         aln, refine_stats = iterative_refinement(
             aln, profiles, args.refine_iters, np.random.default_rng(args.seed),
             dp_go, dp_ge, seq_weight=float(args.seq_weight), scorer=scorer,
+            merge_ops_fn=library.merge_ops if library is not None else None,
             partitions=tree_partitions(tree, N), min_gain=float(args.refine_min_gain),
             device=device, split=refine_split,
         )
@@ -1305,9 +1573,15 @@ def main(argv=None):
         "timing_sec": time.time() - t_start,
         "stage_times_sec": stage_times,
         "device": str(device),
-        "progressive_split_sec": {k_: v for k_, v in split.items() if k_ != "rounds"},
+        "progressive_path": split.get("path", "host"),
+        "progressive_split_sec": {k_: v for k_, v in split.items()
+                                  if k_ not in ("rounds", "path", "pool", "pool_runs")},
         "progressive_rounds": len(split.get("rounds", [])),
     }
+    if "pool" in split:
+        diagnostics["progressive_pool"] = split["pool"]
+        if len(split.get("pool_runs", [])) > 1:
+            diagnostics["progressive_pool_runs"] = split["pool_runs"]
     if refine_split:
         diagnostics["refinement_split_sec"] = refine_split
     if args.plot_diagnostics and heatmaps:

@@ -26,6 +26,7 @@ from ginfinity_tpu_torch.pipelines.engine import (
 )
 from ginfinity_tpu_torch.utils.device import resolve_device
 from ginfinity_tpu_torch.utils.io import Table, log_information, setup_and_read_input, write_tsv
+from ginfinity_tpu_torch.utils.native import parse_float_matrix
 
 
 def serialize_matrix(mat: np.ndarray) -> str:
@@ -36,7 +37,11 @@ def serialize_matrix(mat: np.ndarray) -> str:
 
 
 def parse_matrix(cell: str) -> np.ndarray:
-    """A ``node_embeddings`` cell back to a float32 ``[L, D]`` matrix."""
+    """A ``node_embeddings`` cell back to a float32 ``[L, D]`` matrix: the
+    native scanner, else ``json``."""
+    fast = parse_float_matrix(cell)
+    if fast is not None:
+        return fast
     mat = np.asarray(json.loads(cell), dtype=np.float32)
     if mat.ndim != 2:
         raise ValueError("node_embeddings must be a 2D array [L x D].")

@@ -142,3 +142,51 @@ def test_chip_smoke_fails_alone(tmp_path):
     shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path)
     res = _run_smoke(tmp_path)
     assert res.returncode != 0 and not _printed_ok(res.stdout)
+
+
+_BUILD_ON_IMPORT = """
+import subprocess
+def refuse(*a, **k):
+    raise AssertionError("a build was started while importing: " + repr(a[:1]))
+subprocess.Popen.__init__ = refuse
+subprocess.run = refuse
+from ginfinity_tpu_torch.utils import native
+from ginfinity_tpu_torch.ops import library_pool, profile_pool, value_traceback, pairhmm
+from ginfinity_tpu_torch.pipelines import msa, node_embed
+from ginfinity_tpu_torch.graphs import dotbracket
+assert native._lib is None and value_traceback._lib is None
+assert not profile_pool.check_no_sync and profile_pool.guarded_loops == 0
+print("ok")
+"""
+
+
+def test_pool_and_native_modules_build_nothing_on_import():
+    """The native parser, the traceback kernel and the pools build at first
+    use, never on import: every process creation is refused while the
+    modules are imported."""
+    res = subprocess.run([sys.executable, "-c", _BUILD_ON_IMPORT], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+
+
+def test_pools_refuse_the_cpu_unasked(monkeypatch):
+    """The progressive stage's pools run on the card unless asked for the
+    CPU; the traceback wrapper takes its plain version only for a CPU
+    tensor and refuses other devices."""
+    import numpy as np
+
+    from ginfinity_tpu_torch.ops.value_traceback import value_traceback
+    from ginfinity_tpu_torch.pipelines import msa
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.delenv("GINFINITY_MSA_POOL", raising=False)
+    rng = np.random.default_rng(0)
+    profiles = msa.initial_profiles([msa.SequenceRecord(f"s{k}", msa._l2_normalize_rows(
+        rng.normal(size=(6, 4)).astype(np.float32))) for k in range(3)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        msa.msa_from_tree(((0, 1), 2), profiles, -1.0, -0.1)
+    assert msa.msa_from_tree(((0, 1), 2), profiles, -1.0, -0.1, device="cpu").stem.size >= 6
+    ST = torch.zeros((3, 3, 1, 3))
+    with pytest.raises(ValueError, match="unsupported device"):
+        value_traceback(ST.to("meta"), torch.ones(1, dtype=torch.int64, device="meta"),
+                        torch.ones(1, dtype=torch.int64, device="meta"))

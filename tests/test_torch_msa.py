@@ -381,6 +381,38 @@ def test_progressive_stage_matches_jax(family, mode, tmp_path, monkeypatch):
     assert split["rounds"] and sum(r[0] for r in split["rounds"]) == len(recs) - 1
 
 
+@pytest.mark.parametrize("mode", ["library", "profile"])
+def test_progressive_stage_pooled_matches_jax(family, mode, tmp_path, monkeypatch):
+    """The same stage on both packages' device pools (``GINFINITY_MSA_POOL``
+    unset): the library pools scatter JAX's real (off-grid) consistency
+    posteriors from the slabs in float32, in update order, and the
+    profile pools merge on the device; the port's ``.aln.tsv`` is JAX's
+    byte for byte, and the port's pool path is its host path's."""
+    monkeypatch.delenv("GINFINITY_MSA_POOL", raising=False)
+    alpha, go = (8.0, -4.0) if mode == "library" else (5.0, -10.0)
+    recs, pairs, v, i, tree = _jax_stage(family, alpha, go)
+    lengths = [r.emb.shape[0] for r in recs]
+    jl = jmsa.PosteriorLibrary(pairs, None, None, lengths,
+                               device_slabs=(jnp.asarray(v), jnp.asarray(i)))
+    tl = tmsa.PosteriorLibrary(pairs, None, None, lengths,
+                               device_slabs=(torch.from_numpy(v), torch.from_numpy(i).long()))
+    lib = mode == "library"
+    dgo, dge = (0.0, 0.0) if lib else (-10.0, -0.5)
+    want = jmsa.msa_from_tree(tree, jmsa.initial_profiles(recs), dgo, dge,
+                              scorer=jl.score_matrix if lib else None, library=jl if lib else None)
+    split = {}
+    got = tmsa.msa_from_tree(tree, tmsa.initial_profiles(recs), dgo, dge,
+                             scorer=tl.score_matrix if lib else None, library=tl if lib else None,
+                             device="cpu", split=split)
+    assert split["path"] == ("library_pool" if lib else "pool")
+    assert _write(tmsa, got, recs, tmp_path / "t") == _write(jmsa, want, recs, tmp_path / "j")
+    monkeypatch.setenv("GINFINITY_MSA_POOL", "0")
+    host = tmsa.msa_from_tree(tree, tmsa.initial_profiles(recs), dgo, dge,
+                              scorer=tmsa.PosteriorLibrary(pairs, v, i, lengths).score_matrix
+                              if lib else None, device="cpu")
+    assert _write(tmsa, host, recs, tmp_path / "h") == _write(tmsa, got, recs, tmp_path / "t")
+
+
 # -- the whole CLI -------------------------------------------------------------
 
 
