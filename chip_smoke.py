@@ -68,7 +68,20 @@ the port's paths, the embedding paths with a seeded flagship checkpoint
   CLI with ``--fit-node-stats``, (f) a run stopped in epoch 2 and resumed
   from its ``--save-every 1`` checkpoint, bit-equal to the straight run,
   (g) the flagship architecture (4 layers 256 -> 512 x 3, forgi) for one
-  epoch.
+  epoch;
+* ``--data-parallel`` (``mesh_path``), every data mesh the port builds
+  patched to two shards on the one card: the window, graph, top-k,
+  align-batch and 24-record MSA (both modes) CLIs rerun on the earlier
+  phases' inputs, each output identical to the unsharded run (K1's and
+  K2's launches under the mesh go into the ``kernels`` line as
+  ``mesh_launches``); the sharded train step bit-equal to the mean of
+  its shards' single-device steps, against a CPU mesh under
+  ``card_vs_cpu``'s gradient rules, and twice bit-equal; one epoch of
+  ``train_packaged_architecture`` twice, bit-equal; and a mixed
+  ``[cuda:0, cpu]`` mesh (a graph embed and an align-batch: the card
+  shard's results identical to the card's, the CPU shard's within the
+  card-vs-CPU bar). Two shards on one card show the sharded code, not a
+  speed-up: the machine has one card.
 
 Each phase prints one JSON line with its name and seconds.  The
 ``main_path`` line also splits the warm window pass (upload, window
@@ -134,6 +147,7 @@ import io
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -157,6 +171,7 @@ from ginfinity_tpu_torch.models.gine import (
 )
 from ginfinity_tpu_torch.ops import _build
 from ginfinity_tpu_torch.ops.dp import (
+    affine_align_batch,
     dp_kernel_ok,
     pad_batch,
     paths_from_codes,
@@ -176,6 +191,8 @@ from ginfinity_tpu_torch.ops.windows_encoder import (
     forward_windows_reference,
     pack_params,
 )
+from ginfinity_tpu_torch.parallel import mesh as mesh_mod
+from ginfinity_tpu_torch.parallel.mesh import DataMesh
 from ginfinity_tpu_torch.parallel.search import (
     TopKSearcher,
     _topk,
@@ -297,6 +314,9 @@ TRAIN_ROUNDS = [{"lr": 5e-4, "decay_rate": 0.98, "patience": 10, "num_epochs": 3
                 {"lr": 1e-4, "decay_rate": 0.95, "patience": 10, "num_epochs": 2}]
 FLAGSHIP_ROUNDS = [{"lr": 5e-4, "decay_rate": 0.98, "patience": 10, "num_epochs": 1}]
 TRAIN_PAIR_ROWS = 96
+MESH_SHARDS = 2            # shards of the mesh_path phase, all on the one card
+MESH_MIXED_RNAS = 64       # structures of the mixed [card, CPU] mesh's graph embed
+MESH_MIXED_PAIRS = 64      # pairs of its align-batch
 
 FLAGSHIP = dict(hidden_dim=128, output_dim=128, gin_layers=6,
                 pooling_type="global_mean_pool", node_embed_norm="zscore_l2",
@@ -686,7 +706,7 @@ def search_run(corpus: np.ndarray, queries: np.ndarray, truth: np.ndarray, dev, 
     search_s = time.perf_counter() - t0
     with torch.no_grad():
         q = torch.from_numpy(queries[: s.query_block]).to(dev)
-        n_tiles = s._corpus.shape[0] // s.corpus_tile
+        n_tiles = s._shards[0].corpus.shape[0] // s.corpus_tile
         block_ms = cuda_ms(lambda: s._search_block(q, k), 5)
         q_mat, q_scale = s._query_matrix(q)
         gram_ms = n_tiles * cuda_ms(lambda: s._gram(q_mat, q_scale, 0, s.corpus_tile), 10)
@@ -847,10 +867,11 @@ def read_vectors(path: str, key: str) -> dict:
                 for r in csv.DictReader(f, delimiter="\t")}
 
 
-def quiet_main(fn, argv) -> float:
-    """Seconds of one CLI run, its prints held back, the card drained."""
+def quiet_main(fn, argv, said: io.StringIO | None = None) -> float:
+    """Seconds of one CLI run, its prints held back (in ``said`` when
+    given), the card drained."""
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(io.StringIO()):
+    with contextlib.redirect_stdout(said if said is not None else io.StringIO()):
         fn(argv)
     torch.cuda.synchronize()
     return time.perf_counter() - t0
@@ -1235,16 +1256,18 @@ def oracle_walk(M, X, Y, La: int, Lb: int) -> list:
     return ops[::-1]
 
 
-def msa_run(src: str, out_prefix: str, extra: list, device: str, pool: bool = True) -> dict:
+def msa_run(src: str, out_prefix: str, extra: list, device: str, pool: bool = True,
+            said: io.StringIO | None = None) -> dict:
     """One run of the MSA CLI: wall seconds (the card drained), pairs,
     stage seconds, the progressive stage's path and split from
-    run_meta.json.  ``pool=False`` runs it under ``GINFINITY_MSA_POOL=0``."""
+    run_meta.json.  ``pool=False`` runs it under ``GINFINITY_MSA_POOL=0``;
+    its prints go to ``said`` when given."""
     old = os.environ.pop("GINFINITY_MSA_POOL", None)
     if not pool:
         os.environ["GINFINITY_MSA_POOL"] = "0"
     try:
         t = quiet_main(msa.main, ["--input", src, "--out-prefix", out_prefix,
-                                  "--device", device] + MSA_FLAGS + extra)
+                                  "--device", device] + MSA_FLAGS + extra, said)
     finally:
         os.environ.pop("GINFINITY_MSA_POOL", None)
         if old is not None:
@@ -1848,7 +1871,22 @@ def one_step(cfg, loss_fn, params, state, batch, dev, dtype=torch.float32, seed=
     return float(loss.detach()), grads, tree_map(lambda t: t.cpu().double(), new_state)
 
 
-def card_vs_cpu(cfg, loss_fn, params, state, batch, dev) -> dict:
+def mesh_step(cfg, loss_fn, params, state, stacked, dev, dtype=torch.float32, seed=0):
+    """``one_step`` of a stack of ``MESH_SHARDS`` batches through the
+    sharded train step on the mesh ``[dev] * MESH_SHARDS``: the shards'
+    mean loss and gradients (by leaf path, float64 on the CPU) and the
+    averaged new state."""
+    mesh = DataMesh([dev] * MESH_SHARDS)
+    ts = TrainState.create(tree_map(lambda t: t.to(dev, dtype), params),
+                           tree_map(lambda t: t.to(dev, dtype), state), 1e-4)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    ts, loss = make_train_step(cfg, loss_fn, mesh)(ts, batch_as(stacked, dtype), gen)
+    grads = {"/".join(k): (v.grad if v.grad is not None else torch.zeros_like(v))
+             .detach().cpu().double() for k, v in _leaves((), ts.params)}
+    return float(loss), grads, tree_map(lambda t: t.cpu().double(), ts.model_state)
+
+
+def card_vs_cpu(cfg, loss_fn, params, state, batch, dev, step=one_step) -> dict:
     """One step on the card and on the CPU (float32): the loss within 1e-5
     relative; each gradient leaf (and batch norm's running statistics)
     within ``1e-5 * max(1, max|g|)`` of the CPU's, or no farther from a
@@ -1857,10 +1895,11 @@ def card_vs_cpu(cfg, loss_fn, params, state, batch, dev) -> dict:
     float64 run within 1e-9 (scaled) of the CPU's, the same function, and
     the card's float32 no farther from float64 than 8 times the CPU's
     (cuBLAS's float32 sums: up to 5 times the CPU's distance in alignment
-    mode on an H100; a product in TF32 would sit 10-100 times farther)."""
+    mode on an H100; a product in TF32 would sit 10-100 times farther).
+    ``step`` is ``one_step`` or ``mesh_step``."""
     cpu_dev = torch.device("cpu")
-    card = one_step(cfg, loss_fn, params, state, batch, dev)
-    cpu = one_step(cfg, loss_fn, params, state, batch, cpu_dev)
+    card = step(cfg, loss_fn, params, state, batch, dev)
+    cpu = step(cfg, loss_fn, params, state, batch, cpu_dev)
     rel = abs(card[0] - cpu[0]) / max(abs(cpu[0]), 1e-30)
     if not rel <= TRAIN_TOL:
         raise AssertionError(f"train step loss: card {card[0]} vs CPU {cpu[0]}")
@@ -1882,10 +1921,10 @@ def card_vs_cpu(cfg, loss_fn, params, state, batch, dev) -> dict:
             routes["cpu_1e-5"] += 1
             continue
         if not f64:
-            f64["cpu"] = by_path(one_step(cfg, loss_fn, params, state, batch, cpu_dev,
-                                          torch.float64))
-            f64["card"] = by_path(one_step(cfg, loss_fn, params, state, batch, dev,
-                                           torch.float64))
+            f64["cpu"] = by_path(step(cfg, loss_fn, params, state, batch, cpu_dev,
+                                      torch.float64))
+            f64["card"] = by_path(step(cfg, loss_fn, params, state, batch, dev,
+                                       torch.float64))
         card_d = float((c32[k] - f64["cpu"][k]).abs().max())
         cpu_d = float((w - f64["cpu"][k]).abs().max())
         worst["card_to_f64_over_cpu_to_f64"] = max(worst["card_to_f64_over_cpu_to_f64"],
@@ -1907,15 +1946,17 @@ def card_vs_cpu(cfg, loss_fn, params, state, batch, dev) -> dict:
             "leaves": len(w32), "leaves_by_route": routes, **worst}
 
 
-def repeat_step(cfg, loss_fn, params, state, batch, dev) -> dict:
+def repeat_step(cfg, loss_fn, params, state, batch, dev, mesh=None) -> dict:
     """The same train step (dropout on, one generator seed) twice on the
-    card: gradients, updated parameters and state bit-equal."""
+    card: gradients, updated parameters and state bit-equal.  With
+    ``mesh``, the sharded step of a stacked ``batch``."""
     runs = []
     for _ in range(2):
         ts = TrainState.create(tree_map(lambda t: t.to(dev), params),
                                tree_map(lambda t: t.to(dev), state), 5e-4)
         gen = torch.Generator(device=dev).manual_seed(SEED + 7)
-        ts, loss = make_train_step(cfg, loss_fn)(ts, batch.to(dev), gen)
+        ts, loss = make_train_step(cfg, loss_fn, mesh)(
+            ts, batch if mesh is not None else batch.to(dev), gen)
         runs.append(([leaf.grad.clone() for _, leaf in _leaves((), ts.params)
                       if leaf.grad is not None],
                      [leaf.detach().clone() for _, leaf in _leaves((), ts.params)]
@@ -2167,6 +2208,450 @@ def train_path(tmp: str, dev) -> dict:
 
 
 @contextlib.contextmanager
+def shards_on_each_device(k: int = MESH_SHARDS):
+    """Every data mesh the port builds (``--data-parallel``, the search's
+    default) spans ``k`` shards on the caller's device: two shards on one
+    card take every sharded code path a host of two cards takes."""
+    real = mesh_mod.visible_devices
+    mesh_mod.visible_devices = lambda device: [device] * k
+    try:
+        yield
+    finally:
+        mesh_mod.visible_devices = real
+
+
+def worst_leaf(card: dict, cpu32: dict, ref: dict) -> dict:
+    """The leaf whose card value lies farthest from the float64 ``ref``,
+    relative to the float32 CPU run's distance: both distances (scaled by
+    max(1, max|ref|)) and their ratio."""
+    worst = {"ratio": 0.0}
+    for k, r in ref.items():
+        scale = max(1.0, float(r.abs().max()))
+        c, w = (float((g[k] - r).abs().max()) / scale for g in (card, cpu32))
+        if c / max(w, 1e-30) > worst["ratio"]:
+            worst = {"leaf": k, "card": c, "cpu": w, "ratio": c / max(w, 1e-30)}
+    return worst
+
+
+def float64_distances(step, cfg, loss_fn, params, state, batch, dev) -> dict:
+    """``worst_leaf`` of the gradients of one step on the card, on the CPU
+    and on the CPU in float64.  A measurement, with no bar."""
+    cpu = torch.device("cpu")
+    return worst_leaf(*(step(cfg, loss_fn, params, state, batch, d, dt)[1] for d, dt in (
+        (dev, torch.float32), (cpu, torch.float32), (cpu, torch.float64))))
+
+
+class GradTaps(torch.overrides.TorchFunctionMode):
+    """While on, keeps the gradient of every floating output of a torch
+    function that autograd tracks (``retain_grad``), in call order."""
+
+    def __init__(self):
+        super().__init__()
+        self.taps = []
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in out if isinstance(out, (tuple, list)) else (out,):
+            if isinstance(t, torch.Tensor) and t.is_floating_point() and t.grad_fn is not None:
+                t.retain_grad()
+                self.taps.append((getattr(func, "__name__", str(func)), t))
+        return out
+
+
+def op_gradients(cfg, loss_fn, params, state, batch, dev, dtype) -> list:
+    """``(function, gradient)`` of every tracked output of one train-mode
+    step's forward and loss on ``dev`` in ``dtype`` (gradients float64 on
+    the CPU), in the forward's call order."""
+    p = tree_map(lambda t: t.to(dev, dtype).clone().requires_grad_(True), params)
+    s = tree_map(lambda t: t.to(dev, dtype), state)
+    b = batch_as(batch.to(dev), dtype)
+    taps = GradTaps()
+    with taps:
+        loss, _ = loss_fn(cfg, p, s, b, torch.Generator(device=dev).manual_seed(0))
+    loss.backward()
+    return [(name, None if t.grad is None else t.grad.detach().cpu().double())
+            for name, t in taps.taps]
+
+
+def backward_split(cfg, loss_fn, params, state, batch, dev, floor: float = 1e-7,
+                   keep_rows: bool = False) -> dict:
+    """Where in the backward the card's float32 gradients leave the CPU's:
+    the gradient of every tracked output of the forward (``op_gradients``)
+    on the card and on the CPU in float32, each against the CPU in
+    float64 (max-abs, scaled by max(1, max|float64|)).  The backward
+    runs the forward's ops in reverse, so ``first_departure`` is the op
+    latest in the forward whose card distance exceeds 4 times the CPU's
+    (and ``floor``): its gradient is the first to depart.  ``worst``: the
+    five largest ratios."""
+    cpu = torch.device("cpu")
+    ref = op_gradients(cfg, loss_fn, params, state, batch, cpu, torch.float64)
+    dists = {}
+    for name, d in (("card", dev), ("cpu", cpu)):
+        got = op_gradients(cfg, loss_fn, params, state, batch, d, torch.float32)
+        if [n for n, _ in got] != [n for n, _ in ref]:
+            raise AssertionError(f"backward_split: the {name} run called other functions")
+        dists[name] = [None if r is None or g is None else
+                       float((g - r).abs().max()) / max(1.0, float(r.abs().max()))
+                       for (_, g), (_, r) in zip(got, ref)]
+        del got
+    rows = [{"op": i, "function": ref[i][0], "shape": list(ref[i][1].shape),
+             "card": c, "cpu": w, "ratio": c / max(w, 1e-30)}
+            for i, (c, w) in enumerate(zip(dists["card"], dists["cpu"])) if c is not None]
+    departed = [r for r in rows if r["ratio"] > 4 and r["card"] > floor]
+    return {"ops": len(ref), "first_departure": departed[-1] if departed else None,
+            "departures": len(departed),
+            "worst": sorted(rows, key=lambda r: -r["ratio"])[:5],
+            **({"rows": rows} if keep_rows else {})}
+
+
+def _is_relu(func, args, kwargs) -> bool:
+    """A ReLU kink: ``relu``, or ``clamp`` with ``min=0`` alone."""
+    if func in (torch.relu, torch.nn.functional.relu):
+        return True
+    return (func is torch.clamp and len(args) == 1 and kwargs.get("max") is None
+            and kwargs.get("min") == 0)
+
+
+class KinkPins(torch.overrides.TorchFunctionMode):
+    """The ReLU kinks of a run (``_is_relu``), in call order.  Recording
+    (``masks`` None): each call's branch ``out > 0`` and its input (float64
+    on the CPU) are kept.  Pinning: the ``k``-th call returns its input
+    where the recorded run's ``k``-th branch is open and 0 elsewhere, so
+    the forward and the gradient take the recorded run's branch; each
+    call where this run's own branch differs is listed in ``flips``."""
+
+    def __init__(self, masks=None, inputs=None):
+        super().__init__()
+        self.record = masks is None
+        self.masks = [] if masks is None else masks
+        self.inputs = [] if inputs is None else inputs
+        self.calls = 0
+        self.flips = []
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        if not _is_relu(func, args, kwargs):
+            return out
+        k, self.calls = self.calls, self.calls + 1
+        if self.record:
+            self.masks.append((out > 0).cpu())
+            self.inputs.append(args[0].detach().cpu().double())
+            return out
+        mask = self.masks[k].to(out.device)
+        flip = ((out > 0) != mask).cpu()
+        if flip.any():
+            self.flips.append({"call": k, "function": func.__name__, "elements": int(flip.sum()),
+                               "max_abs_float64_input": float(self.inputs[k][flip].abs().max())})
+        x = args[0]
+        return torch.where(mask, x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def kink_pinned(step, cfg, loss_fn, params, state, batch):
+    """``step`` (``one_step`` or ``mesh_step``) with every ReLU kink on the
+    branch that a float64 CPU run of the same step on ``batch`` takes
+    (``KinkPins``), and the list that each pinned run adds its flips to.
+    Where a float32 ReLU input lies within rounding of 0, the card and
+    the CPU may each round it to either side; pinned, both differentiate
+    the float64 run's branch of the same function."""
+    ref = KinkPins()
+    with ref:
+        step(cfg, loss_fn, params, state, batch, torch.device("cpu"), torch.float64)
+    flips = []
+
+    def pinned(cfg, loss_fn, params, state, batch, dev, dtype=torch.float32, seed=0):
+        pins = KinkPins(ref.masks, ref.inputs)
+        with pins:
+            out = step(cfg, loss_fn, params, state, batch, dev, dtype, seed)
+        if pins.calls != ref.calls:
+            raise AssertionError(f"kink_pinned: {pins.calls} ReLU calls, {ref.calls} recorded")
+        flips.append({"device": dev.type, "dtype": str(dtype).removeprefix("torch."),
+                      "calls": pins.calls, "flipped": pins.flips})
+        return out
+
+    return pinned, flips
+
+
+def mesh_train_steps(trip_p: str, align_ds, dev) -> dict:
+    """The sharded train step of ``MESH_SHARDS`` batches, packaged width,
+    on each mode's first stack of the epoch plans (triplet rows in size
+    order; alignment groups in the seeded shuffle the CLI takes): at
+    dropout 0 on the card, bit-equal to the mean of its shards'
+    single-device steps, and against a CPU mesh under ``card_vs_cpu``'s
+    rules with every ReLU kink on the float64 run's branch
+    (``kink_pinned``); at dropout 0.05 twice on the card, bit-equal.
+    Unpinned, the alignment stack's gradients are measured against
+    float64 (sharded and each shard alone) and split op by op
+    (``backward_split``, shard 0), with no bar."""
+    trip_ds = train_data.TripletDataset(read_table(trip_p))
+
+    def first_stack(it):
+        return next(b for b, stacked in it if stacked)
+
+    loss_fns = {"triplet": triplet_loss_fn(1.0),
+                "alignment": alignment_loss_fn(AlignmentLossConfig(margin=0.2,
+                                                                   temperature=0.1))}
+    stacks = {
+        "triplet": first_stack(train_data.iter_graph_pair_batches_dp(
+            trip_ds, 16, MESH_SHARDS, None, train_data._triplet_batch)),
+        "alignment": first_stack(train_data.iter_alignment_batches_dp(
+            align_ds, 4, 16, MESH_SHARDS, np.random.default_rng(SEED), max_negatives=5000)),
+    }
+    cfg0, cfg = train_config(dropout=0.0), train_config()
+    params0, state0 = variant_model(cfg0, SEED + 22)
+    mesh = DataMesh([dev] * MESH_SHARDS)
+    rec = {"card_vs_cpu": {}, "determinism": {}, "mean_of_single_steps": {}}
+    for mode, stacked in stacks.items():
+        fn = loss_fns[mode]
+        loss, grads, _ = mesh_step(cfg0, fn, params0, state0, stacked, dev)
+        singles = [one_step(cfg0, fn, params0, state0, train_data._unstack(stacked, s), dev)
+                   for s in range(MESH_SHARDS)]
+        same = loss == float(np.float32(sum(np.float32(r[0]) for r in singles)) / MESH_SHARDS)
+        for k, g in grads.items():
+            acc = singles[0][1][k].float()
+            for r in singles[1:]:
+                acc = acc + r[1][k].float()
+            same = same and torch.equal(g, (acc / MESH_SHARDS).double())
+        rec["mean_of_single_steps"][mode] = same
+        if not same:
+            raise AssertionError(f"{mode}: the sharded step on the card is not the mean of "
+                                 f"its shards' single-device steps")
+        pinned, flips = kink_pinned(mesh_step, cfg0, fn, params0, state0, stacked)
+        rec["card_vs_cpu"][mode] = card_vs_cpu(cfg0, fn, params0, state0, stacked, dev,
+                                               step=pinned)
+        rec["card_vs_cpu"][mode]["kink_flips"] = flips
+        rec["determinism"][mode] = repeat_step(cfg, fn, *seeded_model(cfg, SEED + 23),
+                                               stacked, dev, mesh=mesh)
+    stacked, fn = stacks["alignment"], loss_fns["alignment"]
+    rec["alignment_unpinned"] = {
+        "float64_distances": {"sharded": float64_distances(
+            mesh_step, cfg0, fn, params0, state0, stacked, dev), **{
+                f"shard{s}_alone": float64_distances(one_step, cfg0, fn, params0, state0,
+                                                     train_data._unstack(stacked, s), dev)
+                for s in range(MESH_SHARDS)}},
+        "backward_split_shard0": backward_split(cfg0, fn, params0, state0,
+                                                train_data._unstack(stacked, 0), dev)}
+    return rec
+
+
+def same_bytes(a: str, b: str) -> bool:
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        return fa.read() == fb.read()
+
+
+def topk_rows(path: str) -> dict:
+    with open(path, newline="") as f:
+        rows = list(csv.DictReader(f, delimiter="\t"))
+    out: dict = {}
+    for r in rows:
+        out.setdefault(r["rid_1"], []).append((r["rid_2"], float(r["distance"])))
+    return out
+
+
+def mesh_path(work: str, dev) -> dict:
+    """The port's ``--data-parallel`` paths on a mesh of ``MESH_SHARDS``
+    shards on the one card, each held to the unsharded run of an earlier
+    phase on the same inputs (kept under ``work``), and a mixed [card,
+    CPU] mesh; returns the phase's record."""
+    tmp = os.path.join(work, "mesh_path")
+    os.makedirs(tmp)
+    rec = {"shards": MESH_SHARDS}
+    parts = rec["part_seconds"] = {}
+    t_part = time.perf_counter()
+
+    def part(name):
+        nonlocal t_part
+        parts[name] = time.perf_counter() - t_part
+        t_part = time.perf_counter()
+
+    forward_windows.launches = forward_windows.bf16_launches = 0
+    dp_wavefront.launches = dp_wavefront.warp_launches = wavefront_plain.launches = 0
+    with shards_on_each_device():
+        # (a) the window CLI on main_path's corpus: its TSV byte for byte
+        main_dir = os.path.join(work, "main_path")
+        out = os.path.join(tmp, "windows.tsv")
+        said = io.StringIO()
+        with contextlib.redirect_stdout(said):
+            embed.main(["--input", os.path.join(main_dir, "corpus.csv"), "--id-column",
+                        "rna_id", "--output", out, "--model-path",
+                        os.path.join(main_dir, "flagship.pth"), "--window-size", str(WINDOW),
+                        "--keep-paired-neighbors", "--device", str(dev), "--data-parallel"])
+        torch.cuda.synchronize()
+        rec["windows"] = {"k1_launches": forward_windows.launches,
+                          "tsv_identical": same_bytes(out, os.path.join(main_dir,
+                                                                        "windows.tsv"))}
+        if f"data parallel over {MESH_SHARDS} devices" not in said.getvalue():
+            raise AssertionError(f"window CLI: no mesh ({said.getvalue()!r})")
+        if not (rec["windows"]["tsv_identical"] and forward_windows.launches > 0):
+            raise AssertionError(f"window CLI on the mesh: {rec['windows']}")
+        part("a_windows")
+
+        # (b) the graph CLI and (c) the top-k CLI on graph_path's corpus
+        graph_dir = os.path.join(work, "graph_path")
+        out = os.path.join(tmp, "graphs.tsv")
+        said = io.StringIO()
+        with contextlib.redirect_stdout(said):
+            embed.main(["--input", os.path.join(graph_dir, "structures.csv"), "--id-column",
+                        "rid", "--output", out, "--model-path",
+                        os.path.join(graph_dir, "flagship.pth"), "--device", str(dev),
+                        "--data-parallel"])
+        if f"data parallel over {MESH_SHARDS} devices" not in said.getvalue():
+            raise AssertionError(f"graph CLI: no mesh ({said.getvalue()!r})")
+        rec["graph_tsv_identical"] = same_bytes(out, os.path.join(graph_dir, "graphs.tsv"))
+        if not rec["graph_tsv_identical"]:
+            raise AssertionError("graph CLI on the mesh: another TSV")
+        part("b_graphs")
+        topk = os.path.join(tmp, "topk.tsv")
+        searchers = []
+        real_search = TopKSearcher.search
+
+        def search(self, *a, **kw):
+            searchers.append([sh.device.type for sh in self._shards])
+            return real_search(self, *a, **kw)
+
+        TopKSearcher.search = search
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                distances.main(["--input", out, "--output", topk, "--id-column", "rid",
+                                "--top-k", str(TOP_K), "--device", str(dev)])
+        finally:
+            TopKSearcher.search = real_search
+        got, want = topk_rows(topk), topk_rows(os.path.join(graph_dir, "topk.tsv"))
+        rel = max(abs(d - wd) / max(abs(wd), 1e-30) for q in want
+                  for (_, d), (_, wd) in zip(got[q], want[q]))
+        rec["top_k"] = {"queries": len(want), "searcher_shards": searchers,
+                        "neighbours_identical": all(
+                            [c for c, _ in got[q]] == [c for c, _ in want[q]] for q in want),
+                        "distance_max_rel_diff": rel}
+        if searchers != [["cuda"] * MESH_SHARDS]:
+            raise AssertionError(f"top-k CLI: the corpus is not sharded ({searchers})")
+        if not (rec["top_k"]["neighbours_identical"] and sorted(got) == sorted(want)):
+            raise AssertionError("top-k CLI on the mesh: other neighbours")
+        part("c_top_k")
+
+        # (d) align-batch on align_path's node embeddings: its summary byte
+        # for byte, each batch one K2 launch per shard
+        align_dir = os.path.join(work, "align_path")
+        out_dir = os.path.join(tmp, "pairs")
+        n0 = dp_wavefront.launches
+        with contextlib.redirect_stdout(io.StringIO()):
+            align_batch.main(["--input", os.path.join(align_dir, "nodes.tsv"), "--id-column",
+                              "rid", "--output-dir", out_dir, "--batch-size", str(ALIGN_BATCH),
+                              "--mode", "global", "--structure-column-name",
+                              "secondary_structure", "--device", str(dev), "--data-parallel"])
+        torch.cuda.synchronize()
+        n_pairs = ALIGN_RNAS * (ALIGN_RNAS - 1) // 2
+        rec["align_batch"] = {
+            "pairs": n_pairs, "k2_launches": dp_wavefront.launches - n0,
+            "k2_warp_launches": dp_wavefront.warp_launches,
+            "summary_identical": same_bytes(os.path.join(out_dir, "summary.tsv"),
+                                            os.path.join(align_dir, "pairs", "summary.tsv"))}
+        if not (rec["align_batch"]["summary_identical"] and rec["align_batch"]["k2_launches"]
+                == MESH_SHARDS * -(-n_pairs // ALIGN_BATCH) == dp_wavefront.warp_launches):
+            raise AssertionError(f"align-batch on the mesh: {rec['align_batch']}")
+        part("d_align_batch")
+
+        # (e) the MSA's 24-record family in both modes, unsharded and sharded
+        small = os.path.join(work, "msa_path", "small.tsv")
+        rec["msa_small"] = {}
+        for mode in ("library", "profile"):
+            runs = {}
+            for name, extra in (("unsharded", []), ("sharded", ["--data-parallel"])):
+                prefix = os.path.join(tmp, f"msa_{mode}_{name}", "msa")
+                said = io.StringIO()
+                runs[name] = msa_run(small, prefix, ["--dp-score", mode, *extra], str(dev),
+                                     said=said)
+                if extra and f"data parallel over {MESH_SHARDS} devices" not in said.getvalue():
+                    raise AssertionError(f"MSA ({mode}): no mesh")
+            same = same_bytes(os.path.join(tmp, f"msa_{mode}_unsharded", "msa.aln.tsv"),
+                              os.path.join(tmp, f"msa_{mode}_sharded", "msa.aln.tsv"))
+            rec["msa_small"][mode] = {
+                "seconds": {k: r["seconds"] for k, r in runs.items()},
+                "stage_seconds": {k: r["stage_seconds"] for k, r in runs.items()},
+                "aln_tsv_identical": same}
+            if not same:
+                raise AssertionError(f"MSA ({mode}) on the mesh: another .aln.tsv")
+        part("e_msa")
+
+    # (f) training: the sharded step on the card (bit-equal to the mean of
+    # its shards' single-device steps; twice, bit-equal), against the same
+    # on a CPU mesh (card_vs_cpu's gradient rules); an epoch twice, bit-equal
+    train_dir = os.path.join(tmp, "train")
+    data_p, map_p, _ = train_eval.generate_alignment_training_data(
+        os.path.join(train_dir, "data"))
+    with open(map_p) as f:
+        align_ds = train_data.AlignmentDataset(read_table(data_p), json.load(f))
+    rec["train"] = mesh_train_steps(os.path.join(work, "train_path", "triplets.tsv"),
+                                    align_ds, dev)
+    part("f_train_steps")
+    cfg = train_config()
+    start = os.path.join(train_dir, "start.pth")
+    export_torch_checkpoint(start, cfg, *seeded_model(cfg, SEED + 24))
+    runs = []
+    with shards_on_each_device():
+        for k in range(2):
+            said = io.StringIO()
+            with contextlib.redirect_stdout(said):
+                ckpt, wall = train_eval.train_packaged_architecture(
+                    data_p, map_p, os.path.join(train_dir, f"run{k}"), rounds=FLAGSHIP_ROUNDS,
+                    checkpoint=start, device=str(dev))
+            if f"[train] data parallel over {MESH_SHARDS} devices" not in said.getvalue():
+                raise AssertionError("train_packaged_architecture: no mesh")
+            log = os.path.join(os.path.dirname(ckpt), "train.log")
+            runs.append((torch.load(ckpt, weights_only=False)["state_dict"],
+                         log_series(log, "Training Loss"), log_series(log, "Validation Loss"),
+                         wall))
+    (sd0, tr0, va0, w0), (sd1, tr1, va1, w1) = runs
+    rec["train"]["epoch"] = {"cli_seconds": [w0, w1], "train_loss": tr0, "val_loss": va0,
+                             "bit_equal": sd0.keys() == sd1.keys() and all(
+                                 torch.equal(v, sd1[k]) for k, v in sd0.items())
+                             and (tr0, va0) == (tr1, va1)}
+    if not (rec["train"]["epoch"]["bit_equal"] and np.isfinite(tr0).all()):
+        raise AssertionError(f"two sharded epochs on the card differ: {tr0} vs {tr1}")
+    part("f_train_epochs")
+
+    # (g) a mixed mesh [card, CPU]: a tensor left on the wrong device
+    # raises; the card shard's rows equal the card's unsharded run, the CPU
+    # shard's within the card-vs-CPU bar
+    cpu = torch.device("cpu")
+    mixed = DataMesh([dev, cpu])
+    graph_dir = os.path.join(work, "graph_path")
+    rnas = read_table(os.path.join(graph_dir, "structures.csv")).column(
+        "secondary_structure")[:MESH_MIXED_RNAS]
+    graphs = preprocess_structures(rnas).graphs
+    ckpt = os.path.join(graph_dir, "flagship.pth")
+    eng = InferenceEngine.from_checkpoint(ckpt, mesh=mixed, max_nodes_per_batch=2048)
+    got = eng.embed_graphs(graphs)
+    card = InferenceEngine.from_checkpoint(ckpt, device=dev,
+                                           max_nodes_per_batch=2048).embed_graphs(graphs)
+    shard_of = np.zeros(len(graphs), np.int64)
+    for s, idxs, _ in eng._sharded(list(eng._batches(graphs))):
+        shard_of[idxs] = s
+    on_cpu = shard_of == 1
+    rec["mixed"] = {"graph_rows": len(graphs), "cpu_shard_rows": int(on_cpu.sum()),
+                    "card_shard_identical": bool(np.array_equal(got[~on_cpu], card[~on_cpu])),
+                    "cpu_shard_max_abs_err": float(np.abs(got[on_cpu] - card[on_cpu]).max())}
+    with open(os.path.join(work, "align_path", "nodes.tsv"), newline="") as f:
+        mats = [node_embed.parse_matrix(r["node_embeddings"])
+                for r in csv.DictReader(f, delimiter="\t")]
+    pairs = [(i, j) for i in range(len(mats)) for j in range(i + 1, len(mats))]
+    sims = [cosine_similarity_matrix(mats[i], mats[j]).astype(np.float32)
+            for i, j in pairs[:MESH_MIXED_PAIRS]]
+    n0 = dp_wavefront.launches
+    mixed_res = affine_align_batch(sims, -1.0, -1.0, "global", mesh=mixed)
+    rec["mixed"]["align_pairs"] = len(sims)
+    rec["mixed"]["align_k2_launches"] = dp_wavefront.launches - n0
+    rec["mixed"]["align_identical"] = mixed_res == affine_align_batch(sims, -1.0, -1.0,
+                                                                      "global", device=dev)
+    if not (rec["mixed"]["card_shard_identical"] and 0 < on_cpu.sum() < len(graphs)
+            and rec["mixed"]["cpu_shard_max_abs_err"] <= TOL
+            and rec["mixed"]["align_identical"] and rec["mixed"]["align_k2_launches"] == 1):
+        raise AssertionError(f"the mixed mesh: {rec['mixed']}")
+    part("g_mixed")
+    return rec
+
+
+@contextlib.contextmanager
 def phase(name: str, record: dict):
     t0 = time.perf_counter()
     yield record
@@ -2186,6 +2671,22 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        return run_phases(work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def kept_dir(work: str, name: str) -> contextlib.nullcontext:
+    """A phase's directory under ``work``, kept until the run ends so that
+    ``mesh_path`` can rerun its inputs on the mesh."""
+    path = os.path.join(work, name)
+    os.makedirs(path)
+    return contextlib.nullcontext(path)
+
+
+def run_phases(work: str) -> int:
     dev = DEVICE
     torch.cuda.set_device(dev)
     disable_tf32()
@@ -2272,7 +2773,7 @@ def main() -> int:
                    max_abs_err=max(dp_errs), codes_compared="each pair's rectangle",
                    smem_optin=limit, gate_max_l1=max_l1, cases=sorted(cases))
 
-    with tempfile.TemporaryDirectory() as tmp, phase("main_path", {"card": card}) as rec:
+    with kept_dir(work, "main_path") as tmp, phase("main_path", {"card": card}) as rec:
         cfg = GINConfig.create(**FLAGSHIP)
         params, state = seeded_model(cfg, SEED + 2)
         ckpt = os.path.join(tmp, "flagship.pth")
@@ -2340,7 +2841,7 @@ def main() -> int:
                                                  structures, WINDOW, dev))
     main_params, main_state, main_emb = params, state, emb
 
-    with tempfile.TemporaryDirectory() as tmp, phase("align_path", {"card": card}) as rec:
+    with kept_dir(work, "align_path") as tmp, phase("align_path", {"card": card}) as rec:
         rnas = [random_structure(rng, int(rng.integers(150, 351)))
                 for _ in range(ALIGN_RNAS)]
         params, state = seeded_model(cfg, SEED + 4)
@@ -2465,7 +2966,7 @@ def main() -> int:
                    plain_recheck_pairs=len(sims), plain_recheck_route=recheck_route,
                    plain_recheck_max_abs_err=max(err, cli_err))
 
-    with tempfile.TemporaryDirectory() as tmp, phase("graph_path", {"card": card}) as rec:
+    with kept_dir(work, "graph_path") as tmp, phase("graph_path", {"card": card}) as rec:
         rec.update(graph_path(tmp, cfg, dev))
 
     with tempfile.TemporaryDirectory() as tmp, phase("variants_path", {"card": card}) as rec:
@@ -2475,7 +2976,7 @@ def main() -> int:
         rec.update(bf16_path(tmp, cfg, main_params, main_state, structures, main_emb, dev))
         bf16_launches = rec["windows"]["bf16_kernel_launches"]
 
-    with tempfile.TemporaryDirectory() as tmp:
+    with kept_dir(work, "msa_path") as tmp:
         with phase("msa_path", {"card": card}) as rec:
             msa_rec, msa_records = msa_path(tmp, dev)
             rec.update(msa_rec)
@@ -2487,9 +2988,14 @@ def main() -> int:
         tb = traceback_check(dev)
         rec.update(tb)
 
-    with tempfile.TemporaryDirectory() as tmp, phase("train_path", {"card": card}) as rec:
+    with kept_dir(work, "train_path") as tmp, phase("train_path", {"card": card}) as rec:
         rec.update(train_path(tmp, dev))
         train_k2_launches = rec["dp_kernel_launches"]
+
+    with phase("mesh_path", {"card": card}) as rec:
+        rec.update(mesh_path(work, dev))
+        mesh_k1_launches = rec["windows"]["k1_launches"]
+        mesh_k2_launches = rec["align_batch"]["k2_launches"]
 
     with phase("kernel_timing", {"card": card}) as rec:
         p, s = model.params, model.state
@@ -2559,6 +3065,7 @@ def main() -> int:
         "source": "ginfinity_tpu_torch/ops/csrc/windows_encoder.cu",
         "replaces": "ginfinity_tpu/ops/pallas_windows.py:84",
         "launches": launches,
+        "mesh_launches": mesh_k1_launches,
         "max_abs_err": max(errs),
         "ms": ms,
         "plain_ms": plain_ms,
@@ -2586,6 +3093,7 @@ def main() -> int:
         "replaces": "ginfinity_tpu/ops/pallas_dp.py:48",
         "launches": dp_launches,
         "train_path_launches": train_k2_launches,
+        "mesh_launches": mesh_k2_launches,
         "max_abs_err": max(dp_errs),
         "ms": k2["ms"],
         "plain_ms": k2["plain_ms"],

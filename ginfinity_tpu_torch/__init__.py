@@ -15,5 +15,16 @@ encoder, is a hand-written CUDA kernel for Hopper
 __version__ = "0.1.0"
 
 from ginfinity_tpu_torch.utils.device import resolve_device
+from ginfinity_tpu_torch.graphs.dotbracket import is_valid_dot_bracket, pair_table
+from ginfinity_tpu_torch.graphs.build import GraphArrays, build_graph_arrays
+from ginfinity_tpu_torch.models.gine import GINConfig, GINModel
 
-__all__ = ["resolve_device"]
+__all__ = [
+    "resolve_device",
+    "is_valid_dot_bracket",
+    "pair_table",
+    "GraphArrays",
+    "build_graph_arrays",
+    "GINConfig",
+    "GINModel",
+]

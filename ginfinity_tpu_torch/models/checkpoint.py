@@ -1,5 +1,6 @@
 """Checkpoint I/O in the reference ``.pth`` layout, the JAX package's
-native ``.zip`` reader, and the carry from a JAX parameter tree.
+native ``.zip`` format (``metadata.json`` + ``arrays.npz``), and the
+carry from a JAX parameter tree.
 
 Port of ``ginfinity_tpu/models/checkpoint.py``.  A ``.pth`` holds
 ``{metadata, state_dict}`` in the reference key layout: the second
@@ -155,6 +156,37 @@ def params_from_jax(config: GINConfig, params_np: dict, state_np: dict) -> tuple
             f"parameter tree has {len(params_np['convs'])} layers, config {config.gin_layers}"
         )
     return carry(params_np), carry(state_np)
+
+
+def _flatten(prefix: str, tree, out: dict) -> None:
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _flatten(f"{prefix}.{k}" if prefix else str(k), v, out)
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            _flatten(f"{prefix}.{i}", v, out)
+    else:
+        out[prefix] = np.asarray(torch.as_tensor(tree).detach().cpu())
+
+
+def save_checkpoint(path: str, config: GINConfig, params: Params, state: State,
+                    extra_metadata: dict | None = None) -> None:
+    """Write the JAX package's native checkpoint: one zip of
+    ``metadata.json`` (the config, with ``extra`` when given) and
+    ``arrays.npz`` (every leaf under its dotted ``params.``/``state.``
+    key).  Tensors may lie on any device."""
+    flat: dict = {}
+    _flatten("params", params, flat)
+    _flatten("state", state, flat)
+    md = config.to_metadata()
+    if extra_metadata:
+        md = {**md, "extra": extra_metadata}
+    buf = io.BytesIO()
+    np.savez(buf, **flat)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with zipfile.ZipFile(path, "w") as z:
+        z.writestr("metadata.json", json.dumps(md))
+        z.writestr("arrays.npz", buf.getvalue())
 
 
 def load_checkpoint(path: str) -> tuple[GINConfig, Params, State, dict]:

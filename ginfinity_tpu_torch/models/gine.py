@@ -707,6 +707,10 @@ class GINModel(nn.Module):
     def device(self) -> torch.device:
         return self.node_mu.device
 
+    def replica(self, device) -> "GINModel":
+        """A copy of the model on ``device``, with caches of its own."""
+        return GINModel(self.config, self.params, self.state).to(device)
+
     @torch.no_grad()
     def get_node_embeddings(self, batch: GraphBatch, apply_norm: bool = True) -> torch.Tensor:
         """Node embeddings of a batch on the model's device."""

@@ -29,6 +29,7 @@ import functools
 import numpy as np
 import torch
 
+from ginfinity_tpu_torch.parallel.mesh import DataMesh
 from ginfinity_tpu_torch.utils.device import resolve_device
 
 NEG = -1e9  # the reference's minus-infinity sentinel
@@ -276,28 +277,47 @@ def pad_batch(score_mats: list[np.ndarray], L1: int | None = None,
     return scores, l1, l2
 
 
+def _wavefront_on(scores: torch.Tensor, l1: torch.Tensor, l2: torch.Tensor,
+                  gap_open: float, gap_extend: float, mode: str):
+    """``(best, bi, bj, codes)`` of a padded batch on its device: the CUDA
+    kernel on a card whose shared memory holds it, else the plain
+    wavefront."""
+    from ginfinity_tpu_torch.ops.dp_wavefront import dp_wavefront, smem_limit
+
+    dev = scores.device
+    L1, L2 = scores.shape[1:]
+    args = (scores, l1, l2, float(gap_open), float(gap_extend), mode)
+    if dev.type == "cuda" and dp_kernel_ok(L1, L2, mode, smem_limit(dev)):
+        return dp_wavefront(*args)
+    return wavefront_plain(*args)
+
+
 def affine_align_batch(score_mats: list[np.ndarray], gap_open: float, gap_extend: float,
-                       mode: str = "global", device=None) -> list[tuple[float, list]]:
+                       mode: str = "global", device=None, mesh=None) -> list[tuple[float, list]]:
     """Align a batch of similarity matrices; returns ``[(score, path)]``
     with paths of ``(i, j)`` steps (``None`` for a gap).
 
     The batch is padded to its largest ``L1 x L2``; padding cells are
-    masked by each pair's real lengths.  ``device`` defaults to the card.
+    masked by each pair's real lengths.  The batch axis shards over
+    ``mesh`` (``parallel/mesh.py``; by default ``device`` alone, the card
+    unless ``"cpu"`` is asked for): the batch is padded with dummy 1 x 1
+    pairs to a multiple of the mesh size, each shard's block of pairs runs
+    on its device (the kernel on a card), and the results come back in
+    order, the dummies dropped.
     """
-    from ginfinity_tpu_torch.ops.dp_wavefront import dp_wavefront, smem_limit
-
     _check_mode(mode)
-    dev = resolve_device(device)
+    mesh = mesh or DataMesh([resolve_device(device)])
     if not score_mats:
         return []
     scores, l1, l2 = pad_batch(score_mats)
     B, L1, L2 = scores.shape
-    args = (torch.from_numpy(scores).to(dev), torch.from_numpy(l1).to(dev),
-            torch.from_numpy(l2).to(dev), float(gap_open), float(gap_extend), mode)
-    if dev.type == "cuda" and dp_kernel_ok(L1, L2, mode, smem_limit(dev)):
-        best, bi, bj, codes = dp_wavefront(*args)
-    else:
-        best, bi, bj, codes = wavefront_plain(*args)
+    pad = mesh.padded(B) - B
+    shards = zip(*(mesh.split(torch.from_numpy(x)) for x in (
+        np.concatenate([scores, np.zeros((pad, L1, L2), np.float32)]),
+        np.concatenate([l1, np.ones(pad, np.int32)]),
+        np.concatenate([l2, np.ones(pad, np.int32)]))))
+    parts = [_wavefront_on(*shard, gap_open, gap_extend, mode) for shard in shards]
+    best, bi, bj, codes = (mesh.gather([p[k] for p in parts], B) for k in range(4))
     best, bi, bj = best.cpu().numpy(), bi.cpu().numpy(), bj.cpu().numpy()
     paths = paths_from_codes(codes.cpu().numpy(), l1, l2, bi, bj, mode)
     return [(float(best[k]), paths[k]) for k in range(B)]

@@ -384,6 +384,31 @@ def _pair_posteriors_from_embs(embs, lens, ia, ib, alpha, beta, go, ge, pmin,
     return kvals, kidx, expected
 
 
+def pair_posteriors_from_embs_sharded(mesh, embs, lens, ia, ib, alpha, beta, go, ge, pmin,
+                                      local: bool, topk: int, base_embs=None,
+                                      has_base=None, seq_weight=None):
+    """Mesh variant of :func:`_pair_posteriors_from_embs` (the JAX
+    package's ``pair_posteriors_from_embs_sharded``): the pair axis shards
+    and the embeddings replicate.  ``embs``, ``lens`` (and ``base_embs``,
+    ``has_base``) are lists with one replica per shard
+    (``mesh.replicate``); ``ia``/``ib`` are the batch's pair indices, cut
+    into contiguous blocks, one per device.  Pairs are independent and a
+    pair's slabs do not depend on its batch, so the slabs and expected
+    scores gathered onto the first device in shard order are the
+    unsharded ones."""
+    parts = []
+    for s, blk in enumerate(mesh.blocks(len(ia))):
+        if len(blk) == 0:
+            continue
+        dev = mesh.devices[s]
+        kw = {} if base_embs is None else {
+            "base_embs": base_embs[s], "has_base": has_base[s], "seq_weight": seq_weight}
+        parts.append(_pair_posteriors_from_embs(
+            embs[s], lens[s], ia[blk.start:blk.stop].to(dev), ib[blk.start:blk.stop].to(dev),
+            alpha, beta, go, ge, pmin, local, topk, **kw))
+    return tuple(mesh.gather([p[j] for p in parts]) for j in range(3))
+
+
 # ---------------------------------------------------------------------------
 # profile DP (max-plus) and the value traceback
 

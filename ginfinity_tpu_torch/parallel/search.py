@@ -1,15 +1,21 @@
-"""Exact top-k similarity search over an embedding corpus on one device.
+"""Exact top-k similarity search over an embedding corpus sharded over a
+data mesh.
 
-Port of ``ginfinity_tpu/parallel/search.py``.  The corpus lives on the
-device, padded to whole tiles of ``corpus_tile`` rows, and each query
-block is scanned tile by tile:
+Port of ``ginfinity_tpu/parallel/search.py``.  As there, the corpus
+shards over every visible device by default (``parallel/mesh.py``; one
+device on the CPU): it is padded to ``size * corpus_tile`` rows, each
+device holds one contiguous block of whole tiles, and each query block
+is scanned on every shard, tile by tile:
 
     [Q, tile] Gram  ->  tile top-k  ->  a running merge, or candidates
     emitted per tile and merged once
 
-so the ``[Q, N]`` score matrix never exists whole.  Compressed storage
-(bf16, or int8 with per-row scales) over-fetches candidates and
-re-scores them in float32, on the device or on the host.
+so the ``[Q, N]`` score matrix never exists whole.  Each shard returns
+its top ``k`` with corpus-global ids; the shards' candidates are
+gathered onto the first device in shard order and a final top-k is
+taken over them.  Compressed storage (bf16, or int8 with per-row scales)
+over-fetches candidates and re-scores them in float32, on the device or
+on the host.
 
 Scores.  ``sqeuclidean`` ranks by ``2 q.c - ||c||^2`` and reports the
 distance ``||q||^2 - score``, as the JAX package does: the distance is not
@@ -25,7 +31,6 @@ index, in one int64, so ``torch.topk`` sees no two keys equal.
 ``torch.topk`` is exact, so the scan needs no counterpart of the JAX
 package's ``approx_max_k`` candidate generation: ``candidate_recall`` is
 accepted and does nothing, and the default mode returns the exact top-k.
-A mesh of more than one device is not ported (ROADMAP queue 1, item 11).
 """
 
 from __future__ import annotations
@@ -33,7 +38,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ginfinity_tpu_torch.utils.device import disable_tf32, resolve_device
+from ginfinity_tpu_torch.parallel.mesh import make_data_mesh
+from ginfinity_tpu_torch.utils.device import disable_tf32
 
 _NEG = -3.0e38
 # most candidates a query sends to the compressed modes' device re-score
@@ -73,14 +79,40 @@ def _normalise(x: np.ndarray) -> np.ndarray:
     return x / np.maximum(np.linalg.norm(x, axis=1, keepdims=True), 1e-12)
 
 
+class _Shard:
+    """One device's block of the padded corpus: rows ``base`` to ``base +
+    rows - 1`` in the storage mode, with their validity, float32 squared
+    norms and int8 scales."""
+
+    def __init__(self, x: torch.Tensor, n_valid: int, base: int, storage: str,
+                 rescore: str):
+        self.base = base
+        self.device = x.device
+        self.valid = torch.zeros(x.shape[0], dtype=torch.bool, device=x.device)
+        self.valid[:n_valid] = True
+        self.sqnorm = (x * x).sum(dim=1)
+        self.scale = self.resid = self.scale2 = None
+        if storage == "bf16":
+            self.corpus = x.to(torch.bfloat16)
+        elif storage == "int8":
+            self.corpus, self.scale = _quantize_rows(x)
+            if rescore == "device":
+                # the rounding error, quantised again: rows rebuild to ~int16
+                err = x - self.corpus.to(torch.float32) * self.scale[:, None]
+                self.resid, self.scale2 = _quantize_rows(err)
+        else:
+            self.corpus = x
+
+
 class TopKSearcher:
-    """Exact top-k search of a corpus held on one device.
+    """Exact top-k search of a corpus sharded over a data mesh.
 
     Parameters, as the JAX package's:
 
     corpus : ``[N, D]`` float32 embeddings.
     metric : ``'sqeuclidean'`` | ``'cosine'`` | ``'dot'``.
-    mesh : ``None``; a mesh of more than one device raises.
+    mesh : a ``parallel/mesh.py`` mesh; by default every device visible
+        to ``device`` (``make_data_mesh``).
     query_block : queries per scan; the last block is zero-padded.
     precision : Gram precision for f32 storage, ``'highest'`` (float32
         products) or ``'bf16'`` (bf16 products, float32 sums).
@@ -97,7 +129,8 @@ class TopKSearcher:
         against a float32 copy of the corpus.
     candidate_recall : accepted for the JAX package's signature; the
         candidates are exact here.
-    device : the device to search on, the CUDA device unless ``'cpu'``
+    device : without ``mesh``, the device whose visible devices the
+        corpus shards over: the CUDA device (every card) unless ``'cpu'``
         is asked for.
     """
 
@@ -122,13 +155,9 @@ class TopKSearcher:
             raise ValueError(f"storage must be 'f32'|'bf16'|'int8', got {storage!r}")
         if rescore not in ("device", "host"):
             raise ValueError(f"rescore must be 'device'|'host', got {rescore!r}")
-        if mesh is not None and mesh.size() > 1:
-            raise NotImplementedError(
-                "search over a mesh of several devices is not ported yet "
-                "(ROADMAP queue 1, item 11)"
-            )
-        self.device = resolve_device(device)
-        if self.device.type == "cuda":
+        self.mesh = mesh if mesh is not None else make_data_mesh(device=device)
+        self.device = self.mesh.first
+        if any(d.type == "cuda" for d in self.mesh.devices):
             disable_tf32()
         self.metric = metric
         self.precision = precision
@@ -148,24 +177,18 @@ class TopKSearcher:
         if metric == "cosine":
             corpus = _normalise(corpus)
         self._host_corpus = corpus if (storage != "f32" and rescore == "host") else None
-        self.corpus_tile = min(8192, max(256, 1 << (self.n - 1).bit_length()))
-        padded_n = -(-self.n // self.corpus_tile) * self.corpus_tile
-        x = torch.zeros((padded_n, self.dim), dtype=torch.float32, device=self.device)
-        x[: self.n] = torch.from_numpy(corpus).to(self.device)
-        self._valid = torch.zeros(padded_n, dtype=torch.bool, device=self.device)
-        self._valid[: self.n] = True
-        self._sqnorm = (x * x).sum(dim=1)
-        self._scale = self._resid = self._scale2 = None
-        if storage == "bf16":
-            self._corpus = x.to(torch.bfloat16)
-        elif storage == "int8":
-            self._corpus, self._scale = _quantize_rows(x)
-            if rescore == "device":
-                # the rounding error, quantised again: rows rebuild to ~int16
-                err = x - self._corpus.to(torch.float32) * self._scale[:, None]
-                self._resid, self._scale2 = _quantize_rows(err)
-        else:
-            self._corpus = x
+        # each shard holds whole tiles, sized from its share of the rows
+        n_dev = self.mesh.size
+        self.corpus_tile = min(8192, max(256, 1 << (-(-self.n // n_dev) - 1).bit_length()))
+        step = n_dev * self.corpus_tile
+        self._padded_n = -(-self.n // step) * step
+        rows = self._padded_n // n_dev
+        self._shards = []
+        for s, dev in enumerate(self.mesh.devices):
+            lo, hi = min(self.n, s * rows), min(self.n, (s + 1) * rows)
+            x = torch.zeros((rows, self.dim), dtype=torch.float32, device=dev)
+            x[: hi - lo] = torch.from_numpy(corpus[lo:hi]).to(dev)
+            self._shards.append(_Shard(x, hi - lo, s * rows, storage, rescore))
 
     # -- the scan ------------------------------------------------------------
 
@@ -177,32 +200,37 @@ class TopKSearcher:
             return _bf16_values(q), None
         return q, None
 
-    def _gram(self, q_mat: torch.Tensor, q_scale, lo: int, hi: int) -> torch.Tensor:
-        """``[Q, hi - lo]`` float32 scores of the queries against corpus rows
-        ``lo:hi``."""
-        c = self._corpus[lo:hi]
+    def _gram(self, q_mat: torch.Tensor, q_scale, lo: int, hi: int,
+              sh: _Shard | None = None) -> torch.Tensor:
+        """``[Q, hi - lo]`` float32 scores of the queries against rows
+        ``lo:hi`` of shard ``sh`` (the first by default)."""
+        sh = sh or self._shards[0]
+        c = sh.corpus[lo:hi]
         if self.storage == "int8":
             qf, cf = q_mat.to(torch.float32), c.to(torch.float32)
             dots = sum((qf[:, s:s + _INT8_CHUNK] @ cf[:, s:s + _INT8_CHUNK].T).to(torch.int32)
                        for s in range(0, self.dim, _INT8_CHUNK))
-            scores = dots.to(torch.float32) * q_scale[:, None] * self._scale[None, lo:hi]
+            scores = dots.to(torch.float32) * q_scale[:, None] * sh.scale[None, lo:hi]
         else:
             c = _bf16_values(c) if self.precision == "bf16" else c.to(torch.float32)
             scores = q_mat @ c.T
         if self.metric == "sqeuclidean":
             # maximise 2 q.c - ||c||^2, which minimises ||q - c||^2
-            scores = 2.0 * scores - self._sqnorm[None, lo:hi]
-        return torch.where(self._valid[None, lo:hi], scores, _NEG)
+            scores = 2.0 * scores - sh.sqnorm[None, lo:hi]
+        return torch.where(sh.valid[None, lo:hi], scores, _NEG)
 
-    def _scan(self, q: torch.Tensor, k_tile: int, merge_k: int | None = None):
+    def _scan(self, q: torch.Tensor, k_tile: int, merge_k: int | None = None,
+              sh: _Shard | None = None):
         """Each tile's top ``k_tile`` ``(scores, ids)`` of each query: all
         tiles' candidates side by side, or, with ``merge_k``, the top
-        ``merge_k`` of a merge after each tile."""
+        ``merge_k`` of a merge after each tile.  Ids are rows of shard
+        ``sh`` (the first by default)."""
+        sh = sh or self._shards[0]
         q_mat, q_scale = self._query_matrix(q)
         tile = self.corpus_tile
         vals, ids = [], []
-        for lo in range(0, self._corpus.shape[0], tile):
-            scores = self._gram(q_mat, q_scale, lo, lo + tile)
+        for lo in range(0, sh.corpus.shape[0], tile):
+            scores = self._gram(q_mat, q_scale, lo, lo + tile, sh)
             row_ids = torch.arange(lo, lo + tile, device=q.device)
             tv, ti = _topk(scores, row_ids, min(k_tile, tile))
             vals.append(tv)
@@ -216,25 +244,27 @@ class TopKSearcher:
     def _k_tile(self, k: int) -> int:
         """Candidates a tile emits for a top ``k``.  The JAX package's count,
         ``max(k, overfetch * k // 4)``, meets the over-fetch through many
-        tiles (or shards); a corpus of a few tiles on one device emits
+        tiles (or shards); a corpus of a few tiles in all emits
         ``overfetch * k`` candidates in all instead."""
-        n_tiles = self._corpus.shape[0] // self.corpus_tile
+        n_tiles = self._padded_n // self.corpus_tile
         k_tile = max(k, self.overfetch * k // 4, -(-min(self.n, self.overfetch * k) // n_tiles))
         return min(k_tile, self.corpus_tile)
 
-    def _refine(self, q: torch.Tensor, cv: torch.Tensor, ci: torch.Tensor, k: int):
-        """Candidates re-scored in float32 from the stored rows; the top
-        ``k`` by the refined score (for ``sqeuclidean`` minus the
-        distance)."""
+    def _refine(self, q: torch.Tensor, cv: torch.Tensor, ci: torch.Tensor, k: int,
+                sh: _Shard | None = None):
+        """Candidates re-scored in float32 from the stored rows of shard
+        ``sh`` (the first by default); the top ``k`` by the refined score
+        (for ``sqeuclidean`` minus the distance)."""
+        sh = sh or self._shards[0]
         # at least overfetch * k candidates survive the preselect (the JAX
         # package keeps k on each of its shards)
         cap = max(_RESCORE_CAND_CAP, min(self.overfetch * k, self.n))
         if cv.shape[1] > cap:
             cv, ci = _topk(cv, ci, cap)
-        rows = self._corpus[ci].to(torch.float32)  # [Q, C, D]
+        rows = sh.corpus[ci].to(torch.float32)  # [Q, C, D]
         if self.storage == "int8":
-            rows = rows * self._scale[ci][..., None]
-            rows = rows + self._resid[ci].to(torch.float32) * self._scale2[ci][..., None]
+            rows = rows * sh.scale[ci][..., None]
+            rows = rows + sh.resid[ci].to(torch.float32) * sh.scale2[ci][..., None]
         if self.metric == "sqeuclidean":
             d = rows - q[:, None, :]
             refined = -(d * d).sum(dim=-1)
@@ -243,16 +273,29 @@ class TopKSearcher:
         refined = torch.where(cv > _NEG / 2, refined, _NEG)
         return _topk(refined, ci, min(k, refined.shape[1]))
 
-    def _search_block(self, q: torch.Tensor, k: int):
-        """The device's top ``k`` ``(scores, ids)`` of one padded query
-        block, best first."""
+    def _shard_block(self, sh: _Shard, q: torch.Tensor, k: int):
+        """Shard ``sh``'s top ``k`` ``(scores, ids)`` of one padded query
+        block (fewer when it holds fewer candidates), best first, with
+        corpus-global ids."""
         if self._dev_rescore:
-            return self._refine(q, *self._scan(q, self._k_tile(k)), k)
-        if self._f32_fast:
-            return _topk(*self._scan(q, self._k_tile(k)), k)
-        if self.storage == "f32":
-            return self._scan(q, k, merge_k=k)
-        return _topk(*self._scan(q, k), k)
+            v, i = self._refine(q, *self._scan(q, self._k_tile(k), sh=sh), k, sh=sh)
+        elif self.storage == "f32" and not self._f32_fast:
+            v, i = self._scan(q, k, merge_k=k, sh=sh)
+        else:
+            cv, ci = self._scan(q, self._k_tile(k) if self._f32_fast else k, sh=sh)
+            v, i = _topk(cv, ci, min(k, cv.shape[1]))
+        return v, i + sh.base
+
+    def _search_block(self, q: torch.Tensor, k: int):
+        """The top ``k`` ``(scores, ids)`` of one padded query block on the
+        first device, best first: each shard's candidates, gathered in
+        shard order and merged."""
+        parts = [self._shard_block(sh, q.to(sh.device), k) for sh in self._shards]
+        if len(parts) == 1:
+            return parts[0]
+        v = torch.cat([p[0].to(self.device) for p in parts], dim=1)
+        i = torch.cat([p[1].to(self.device) for p in parts], dim=1)
+        return _topk(v, i, k)
 
     def search(self, queries: np.ndarray, k: int) -> tuple[np.ndarray, np.ndarray]:
         """``(scores [Q, k] float32, ids [Q, k] int64)`` of the top-k corpus

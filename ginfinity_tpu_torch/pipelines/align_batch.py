@@ -4,9 +4,9 @@ Port of ``ginfinity_tpu/pipelines/align_batch.py``: the same flags (plus
 ``--device``), the same per-pair output layout and ``summary.tsv``.
 Every ``--batch-size`` pairs' similarity matrices (numpy float32 on the
 host) go through one call of ``ops/dp.py::affine_align_batch``: on the
-card, one launch of the DP wavefront kernel.  ``--data-parallel`` is
-accepted and runs on the one card (several cards: ROADMAP queue 1,
-item 11).
+card, one launch of the DP wavefront kernel.  ``--data-parallel``
+shards each batch's pairs over every visible card (``parallel/mesh.py``),
+one launch per card; with one card visible it runs unsharded.
 """
 
 from __future__ import annotations
@@ -17,9 +17,9 @@ import os
 import re
 
 import numpy as np
-import torch
 
 from ginfinity_tpu_torch.ops.dp import affine_align_batch
+from ginfinity_tpu_torch.parallel.mesh import data_parallel_mesh
 from ginfinity_tpu_torch.pipelines.align import (
     aligned_structures,
     alignment_to_tsv,
@@ -99,7 +99,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument(
         "--data-parallel",
         action="store_true",
-        help="Spread pair batches over all visible devices (one card: no change).",
+        help="Shard pair batches over all visible devices (one device: no change).",
     )
     parser.add_argument("--device", default=None,
                         help="Device of the DP: the CUDA device when not given, "
@@ -110,10 +110,6 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)
-    if args.data_parallel and device.type == "cuda" and torch.cuda.device_count() > 1:
-        raise NotImplementedError(
-            "--data-parallel over several cards is not ported yet (ROADMAP queue 1, item 11)"
-        )
 
     os.makedirs(args.output_dir, exist_ok=True)
     table = read_table_auto(args.input)
@@ -141,6 +137,10 @@ def main(argv=None):
     if args.gap_extend is None:
         args.gap_extend = args.gap_open
 
+    mesh = data_parallel_mesh(device) if args.data_parallel else None
+    if mesh is not None:
+        print(f"[align-batch] data parallel over {mesh.size} devices")
+
     pairs = [(i, j) for i in range(n) for j in range(i + 1, n)]
     summary_rows = []
     for s in range(0, len(pairs), args.batch_size):
@@ -149,7 +149,7 @@ def main(argv=None):
             cosine_similarity_matrix(mats[i], mats[j]).astype(np.float32) for i, j in chunk
         ]
         results = affine_align_batch(sims, args.gap_open, args.gap_extend, args.mode,
-                                     device=device)
+                                     device=device, mesh=mesh)
         for (i, j), sim, (best_score, path) in zip(chunk, sims, results):
             _write_pair_outputs(args, ids[i], ids[j], structs[i], structs[j], sim, best_score, path)
             summary_rows.append(

@@ -10,9 +10,9 @@ output of ``python -m ginfinity_tpu_torch.pipelines.windows``).  Each
 mode takes ``--precision bf16``, the speed mode (products of bf16
 operands summed in float32); ``--bf16-check N`` measures its agreement
 with f32 on a sample of the window mode's corpus, and ``--profile-dir``
-writes a ``torch.profiler`` trace of the run.  Several cards
-(``--data-parallel``) raise ``NotImplementedError`` naming the ROADMAP
-item that ports them.
+writes a ``torch.profiler`` trace of the run.  ``--data-parallel``
+shards the graph batches or the windows over every visible card
+(``parallel/mesh.py``); with one card visible it runs unsharded.
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ginfinity_tpu_torch.graphs.dotbracket import pair_table
+from ginfinity_tpu_torch.parallel.mesh import data_parallel_mesh
 from ginfinity_tpu_torch.utils.device import resolve_device
 from ginfinity_tpu_torch.utils.io import (
     Table,
@@ -53,11 +54,12 @@ def generate_embeddings(
     sequence_column: str = "sequence",
     precision: str = "highest",
     device=None,
+    mesh=None,
 ):
     """One graph embedding per valid structure: the id column, then
     ``window_start``/``window_end`` when present, ``embedding_vector``,
     and the other kept columns sorted.  With no valid structure the TSV
-    holds the header alone."""
+    holds the header alone.  ``mesh`` shards the batches."""
     from ginfinity_tpu_torch.pipelines.engine import InferenceEngine, preprocess_structures
 
     final_keep = [id_column]
@@ -67,7 +69,7 @@ def generate_embeddings(
         final_keep.extend(keep_cols)
 
     engine = InferenceEngine.from_checkpoint(model_path, precision=precision, device=device,
-                                             max_nodes_per_batch=batch_nodes)
+                                             max_nodes_per_batch=batch_nodes, mesh=mesh)
     cfg = engine.config
     graph_encoding = (graph_encoding_override or cfg.graph_encoding or "standard").lower()
     if graph_encoding not in {"standard", "forgi"}:
@@ -135,9 +137,11 @@ def generate_window_embeddings(
     bf16_check: int = 0,
     wire: str | None = None,
     device=None,
+    mesh=None,
 ):
     """Fused sliding-window embedding (--window-size): every window of
-    every structure is built and embedded on the device in one pass.
+    every structure is built and embedded on the device in one pass
+    (``mesh``: the windows shard over its devices).
     One row per window: window_id, the id column, window_start,
     window_end, seq_len, embedding_vector, then the kept columns."""
     from ginfinity_tpu_torch.models.checkpoint import load_checkpoint
@@ -165,7 +169,7 @@ def generate_window_embeddings(
         ids.append(rid)
     results = embed_corpus_windows(
         model, structures, window_size, keep_paired_neighbors, mask_threshold,
-        max_programs=max_programs, wire=wire, device=dev,
+        max_programs=max_programs, mesh=mesh, wire=wire, device=dev,
     )
     if precision != "highest" and bf16_check > 0:
         _report_bf16_tail(cfg, params, state, structures, ids, results, window_size,
@@ -270,9 +274,10 @@ def _report_bf16_tail(cfg, params, state, structures, ids, results, window_size,
                  f" — WORST: {diag['bf16_worst_windows']}"))
 
 
-def _embed_precomputed(args, device):
+def _embed_precomputed(args, device, mesh=None):
     """``--graph-pt`` mode: one embedding per window graph, in the order of
-    the metadata TSV, written beside each row's metadata."""
+    the metadata TSV, written beside each row's metadata; ``mesh`` shards
+    the batches."""
     from ginfinity_tpu_torch.pipelines.engine import InferenceEngine, adapt_graphs_to_model
     from ginfinity_tpu_torch.pipelines.windows import load_precomputed, write_precomputed
 
@@ -280,7 +285,8 @@ def _embed_precomputed(args, device):
     log_path = os.path.splitext(args.output)[0] + ".log"
     open(log_path, "a").close()
     engine = InferenceEngine.from_checkpoint(args.model_path, precision=_precision(args),
-                                             device=device, max_nodes_per_batch=args.batch_nodes)
+                                             device=device, max_nodes_per_batch=args.batch_nodes,
+                                             mesh=mesh)
     embeddings = engine.embed_graphs(adapt_graphs_to_model(graphs, engine.config))
     write_precomputed(args.output, meta, args.id_column, "embedding_vector",
                       [format_embedding(v) for v in embeddings])
@@ -393,17 +399,17 @@ def _main_inner(args):
                  "(a reference .pth works directly).")
     if bool(args.graph_pt) != bool(args.meta_tsv):
         sys.exit("ERROR: --graph-pt and --meta-tsv must be given together.")
+    mesh = None
     if args.data_parallel:
-        if device.type == "cuda" and torch.cuda.device_count() > 1:
-            raise NotImplementedError(
-                "--data-parallel over several cards is not ported yet "
-                "(ROADMAP queue 1, item 11)"
-            )
-        if not args.quiet:
+        mesh = data_parallel_mesh(device)
+        if mesh is not None:
+            if not args.quiet:
+                print(f"[generate_embeddings] data parallel over {mesh.size} devices")
+        elif not args.quiet:
             print("[generate_embeddings] --data-parallel: single device "
                   "visible; running unsharded")
     if args.graph_pt:
-        _embed_precomputed(args, device)
+        _embed_precomputed(args, device, mesh)
         return
 
     table, log_path, propagate = setup_and_read_input(args, need_model=True)
@@ -422,6 +428,7 @@ def _main_inner(args):
             seq_weight_override=args.seq_weight,
             precision=_precision(args),
             device=device,
+            mesh=mesh,
         )
         return
     if args.window_size < 2:
@@ -443,6 +450,7 @@ def _main_inner(args):
         bf16_check=args.bf16_check,
         wire=None if args.wire == "f32" else args.wire,
         device=device,
+        mesh=mesh,
     )
 
 

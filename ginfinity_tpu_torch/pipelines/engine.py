@@ -5,10 +5,14 @@ preprocessing, feature-width adaptation, and size-ordered greedy packing
 into padded batches (``graphs/batching.py``).  Each planned batch is one
 :class:`GraphBatch` moved to the device and run.  Graph embeddings
 (``embed_graphs``) stay on the device until the last batch and come down
-in one copy; node embeddings come down batch by batch.  The JAX
-package's wire format, stacked ``lax.map`` groups, backend warm-up and
-``mesh`` are XLA machinery with no counterpart here (several cards:
-ROADMAP queue 1, item 11).
+in one copy; node embeddings come down batch by batch.  Graph
+embeddings shard over a ``mesh`` (``parallel/mesh.py``; one device
+unless asked) as the JAX package's ``forward_stacked_sharded`` shards
+them: the planned batches are cut into contiguous blocks, one per
+device, the model is replicated once per device, and the rows come back
+onto the first device.  The JAX package's wire
+format, stacked ``lax.map`` groups and backend warm-up are XLA machinery
+with no counterpart here.
 """
 
 from __future__ import annotations
@@ -17,12 +21,12 @@ import dataclasses
 from typing import Sequence
 
 import numpy as np
-import torch
 
 from ginfinity_tpu_torch.graphs.batching import batch_graphs, bucket_sizes, plan_batches, _round_capacity
 from ginfinity_tpu_torch.graphs.build import GraphArrays, _fit_width, build_graph_arrays
 from ginfinity_tpu_torch.graphs.dotbracket import pair_table
 from ginfinity_tpu_torch.models.gine import GINConfig, GINModel
+from ginfinity_tpu_torch.parallel.mesh import DataMesh
 from ginfinity_tpu_torch.utils.device import disable_tf32, resolve_device
 
 
@@ -103,14 +107,19 @@ def adapt_graphs_to_model(graphs: Sequence[GraphArrays], cfg: GINConfig) -> list
 
 
 class InferenceEngine:
-    """Bucketed batched inference over a GINE model on one device."""
+    """Bucketed batched inference over a GINE model, its graph embeddings
+    sharded over ``mesh``'s devices (by default ``device`` alone): the
+    model on the first, a replica on each other."""
 
     def __init__(self, model: GINModel, max_nodes_per_batch: int = 8192,
-                 max_graphs_per_batch: int = 256, device=None):
-        self.device = resolve_device(device)
+                 max_graphs_per_batch: int = 256, device=None, mesh=None):
+        self.mesh = mesh or DataMesh([resolve_device(device)])
+        self.device = self.mesh.first
         if self.device.type == "cuda":
             disable_tf32()
         self.model = model.to(self.device)
+        self.replicas = self.mesh.replicate(
+            lambda d: self.model if d == self.device else self.model.replica(d))
         self.max_nodes_per_batch = max_nodes_per_batch
         self.max_graphs_per_batch = max_graphs_per_batch
 
@@ -140,16 +149,27 @@ class InferenceEngine:
                                         sum(g.n_edges for g in chunk))
             yield idxs, batch_graphs(chunk, n_cap, e_cap, _round_capacity(len(chunk)))
 
+    def _sharded(self, batches: list) -> list:
+        """``(shard, idxs, batch)`` of each planned batch: the plan cut into
+        contiguous blocks, block ``s`` to shard ``s``, listed round-robin
+        over the shards so that every device has work queued early.  (The
+        JAX package shards each group of equal-shape batches, the unit of
+        its stacked programs; batches of any shape run here, so the whole
+        plan shards and no device idles on a group of one.)"""
+        blocks = self.mesh.blocks(len(batches))
+        return [(s, *batches[b[step]]) for step in range(len(blocks[0]))
+                for s, b in enumerate(blocks) if step < len(b)]
+
     def embed_graphs(self, graphs: Sequence[GraphArrays]) -> np.ndarray:
         """Graph embeddings ``[len(graphs), output_dim]`` float32, in input
         order."""
         out = np.zeros((len(graphs), self.config.output_dim), np.float32)
         order, parts = [], []
-        for idxs, batch in self._batches(graphs):
-            parts.append(self.model.forward_once(batch)[: len(idxs)])
+        for s, idxs, batch in self._sharded(list(self._batches(graphs))):
+            parts.append(self.replicas[s].forward_once(batch)[: len(idxs)])
             order += idxs
         if parts:
-            out[order] = torch.cat(parts).cpu().numpy()
+            out[order] = self.mesh.gather(parts).cpu().numpy()
         return out
 
     def node_embeddings(self, graphs: Sequence[GraphArrays],

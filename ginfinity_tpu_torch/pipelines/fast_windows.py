@@ -49,6 +49,7 @@ from ginfinity_tpu_torch.ops.windows_encoder import (
     windows_kernel_ok,
 )
 from ginfinity_tpu_torch.pipelines.windows import window_starts_mask
+from ginfinity_tpu_torch.parallel.mesh import DataMesh
 from ginfinity_tpu_torch.utils.device import disable_tf32, resolve_device
 
 
@@ -300,59 +301,97 @@ def _pack_group(cfg: GINConfig, per, n_cap: int, idxs, w_multiple: int | None = 
     return feats, pts_p, sidx_p, starts_p, w_cap
 
 
-def _upload_group(cfg: GINConfig, per, n_cap: int, idxs, dev):
-    """One ladder group's stacked arrays and its real window descriptors on
-    ``dev``: ``(feats, pts, si, st, w_cap)``."""
+def _group_host(cfg: GINConfig, per, n_cap: int, idxs):
+    """One ladder group's stacked host arrays and its real window
+    descriptors: ``(feats, pts, si, st, w_cap)``."""
     feats, pts_p, sidx_p, starts_p, w_cap = _pack_group(cfg, per, n_cap, idxs)
     n_real = sum(per[i][4].size for i in idxs)
+    return feats, pts_p, sidx_p[:n_real], starts_p[:n_real], w_cap
+
+
+def _upload(host, dev) -> tuple:
+    """A group's host arrays on ``dev``: ``(feats, pts, si, st)``, the
+    indices int64."""
+    feats, pts_p, si, st = host[:4]
     return (torch.from_numpy(feats).to(dev), torch.from_numpy(pts_p).to(dev, torch.int64),
-            torch.from_numpy(sidx_p[:n_real]).to(dev, torch.int64),
-            torch.from_numpy(starts_p[:n_real]).to(dev, torch.int64), w_cap)
+            torch.from_numpy(si).to(dev, torch.int64), torch.from_numpy(st).to(dev, torch.int64))
+
+
+def _run_chunks(mesh, replicas, host, bounds, runner) -> torch.Tensor:
+    """The rows of a group's chunks ``bounds`` (descriptor ranges), in
+    order: the chunks cut into contiguous blocks, block ``s`` run by
+    ``replicas[s]`` on ``mesh``'s device ``s`` over the group's arrays
+    uploaded there (once per device), enqueued round-robin over the
+    shards, and the rows gathered onto the first device.
+    ``runner(model, arrays)`` returns the function of ``(c0, c1)`` that
+    embeds one chunk."""
+    blocks = mesh.blocks(len(bounds))
+    arrays = mesh.replicate(lambda d: _upload(host, d))
+    runs = [runner(m, a) if len(b) else None for m, a, b in zip(replicas, arrays, blocks)]
+    outs: list[list] = [[] for _ in blocks]
+    for step in range(len(blocks[0])):
+        for s, b in enumerate(blocks):
+            if step < len(b):
+                outs[s].append(runs[s](*bounds[b[step]]))
+    return mesh.gather([torch.cat(o) for o in outs if o])
+
+
+def _replicas(model: GINModel, mesh) -> tuple:
+    """``(mesh, replicas)``: ``mesh`` (by default the model's device
+    alone) and the model on each shard's device, the model itself on the
+    first."""
+    mesh = mesh or DataMesh([model.device])
+    return mesh, mesh.replicate(lambda d: model if d == model.device else model.replica(d))
 
 
 def _embed_group(model: GINModel, per, n_cap: int, idxs, L: int,
-                 keep_paired_neighbors: bool, use_kernel: bool | None = None) -> torch.Tensor:
-    """Every window of one ladder group, on the model's device:
-    ``[n_windows, out_dim]`` in descriptor order.  Chunks run over the
-    real descriptors only; the padding of ``w_cap`` sets the chunk size."""
+                 keep_paired_neighbors: bool, use_kernel: bool | None = None,
+                 on=None) -> torch.Tensor:
+    """Every window of one ladder group: ``[n_windows, out_dim]`` in
+    descriptor order, on the model's device.  ``on``: ``_replicas``'s
+    ``(mesh, replicas)`` to shard the chunks over (by default the model's
+    device alone).  Chunks run over the real descriptors only; the
+    padding of ``w_cap`` sets the chunk size."""
     cfg = model.config
-    dev = model.device
-    feats_d, pts_d, si, st, w_cap = _upload_group(cfg, per, n_cap, idxs, dev)
-    n_real = si.shape[0]
-    views = (feats_d.unfold(1, L, 1), pts_d.unfold(1, L, 1))
-    params, state = model.params, model.state
+    host = _group_host(cfg, per, n_cap, idxs)
+    n_real, chunk = host[2].shape[0], _chunk_for(host[4])
     kernel = use_kernel if use_kernel is not None else windows_kernel_ok(cfg)
-    packed = model.packed_windows() if kernel and dev.type == "cuda" else None
-    chunk = _chunk_for(w_cap)
-    out = torch.empty((n_real, cfg.output_dim), dtype=torch.float32, device=dev)
-    for c0 in range(0, n_real, chunk):
-        out[c0:c0 + chunk] = _forward_windows_aligned(
-            cfg, params, state, feats_d, pts_d, si[c0:c0 + chunk], st[c0:c0 + chunk],
-            L, keep_paired_neighbors, views, kernel, packed,
-        )
-    return out
+
+    def runner(m: GINModel, arrays):
+        feats_d, pts_d, si, st = arrays
+        views = (feats_d.unfold(1, L, 1), pts_d.unfold(1, L, 1))
+        params, state = m.params, m.state
+        packed = m.packed_windows() if kernel and m.device.type == "cuda" else None
+        return lambda c0, c1: _forward_windows_aligned(
+            cfg, params, state, feats_d, pts_d, si[c0:c1], st[c0:c1], L,
+            keep_paired_neighbors, views, kernel, packed)
+
+    bounds = [(c0, min(n_real, c0 + chunk)) for c0 in range(0, n_real, chunk)]
+    return _run_chunks(*(on or _replicas(model, None)), host, bounds, runner)
 
 
 def _embed_group_compact(model: GINModel, per, n_cap: int, idxs, L: int,
-                         keep_paired_neighbors: bool) -> torch.Tensor:
+                         keep_paired_neighbors: bool, on=None) -> torch.Tensor:
     """The compact path over one ladder group: ``[n_windows, out_dim]`` in
     descriptor order, chunks of at most about ``_COMPACT_CHUNK_NODES``
-    real nodes."""
-    cfg, dev = model.config, model.device
-    feats_d, pts_d, si, st, _ = _upload_group(cfg, per, n_cap, idxs, dev)
+    real nodes (sharded as :func:`_embed_group` shards them)."""
+    cfg = model.config
+    host = _group_host(cfg, per, n_cap, idxs)
     nodes = np.concatenate([
         L + _window_slot_counts(per[i][2], L, per[i][4], keep_paired_neighbors)[1]
         for i in idxs])
     n_real = nodes.size
     cuts = np.flatnonzero(np.diff(np.cumsum(nodes) // _COMPACT_CHUNK_NODES)) + 1
-    bounds = np.concatenate([[0], cuts, [n_real]])
-    params, state = model.params, model.state
-    out = torch.empty((n_real, cfg.output_dim), dtype=torch.float32, device=dev)
-    for c0, c1 in zip(bounds[:-1].tolist(), bounds[1:].tolist()):
-        batch = _window_graphs(cfg, feats_d, pts_d, si[c0:c1], st[c0:c1], L,
-                               keep_paired_neighbors)
-        out[c0:c1] = forward_once(cfg, params, state, batch)
-    return out
+    bounds = np.concatenate([[0], cuts, [n_real]]).tolist()
+
+    def runner(m: GINModel, arrays):
+        feats_d, pts_d, si, st = arrays
+        params, state = m.params, m.state
+        return lambda c0, c1: forward_once(cfg, params, state, _window_graphs(
+            cfg, feats_d, pts_d, si[c0:c1], st[c0:c1], L, keep_paired_neighbors))
+
+    return _run_chunks(*(on or _replicas(model, None)), host,
+                       list(zip(bounds[:-1], bounds[1:])), runner)
 
 
 def embed_corpus_windows(model: GINModel, structures, L: int, keep_paired_neighbors=True,
@@ -362,23 +401,24 @@ def embed_corpus_windows(model: GINModel, structures, L: int, keep_paired_neighb
     per structure, as numpy arrays.
 
     ``device``: where to run (``None`` = the CUDA device; ``"cpu"`` only
-    when asked); the model is moved there.  ``max_programs``: merge the
-    smallest length buckets until at most this many groups remain.
-    ``wire``: ``None``/"f32" returns exact float32; "f16" casts on the
-    device and upcasts on the host (half the download for at most 2^-11
-    relative rounding per element)."""
+    when asked); the model is moved there.  ``mesh`` (``parallel/mesh.py``)
+    shards each group's windows over its devices instead, as the JAX
+    package's ``_embed_windows_stacked_sharded`` shards its descriptor
+    axis: the model moves to the first device and is replicated on the
+    others, and each device embeds a contiguous block of the group's
+    chunks.  ``max_programs``: merge the smallest length buckets until at
+    most this many groups remain.  ``wire``: ``None``/"f32" returns exact
+    float32; "f16" casts on the device and upcasts on the host (half the
+    download for at most 2^-11 relative rounding per element)."""
     if wire not in (None, "f32", "f16"):
         raise ValueError(f"wire must be None, 'f32' or 'f16', got {wire!r}")
-    if mesh is not None:
-        raise NotImplementedError(
-            "multi-device window embedding is not ported yet (ROADMAP queue 1, item 11)"
-        )
     cfg = model.config
-    dev = resolve_device(device)
-    if dev.type == "cuda":
+    mesh = mesh or DataMesh([resolve_device(device)])
+    if mesh.first.type == "cuda":
         disable_tf32()
-    if model.device != dev:
-        model.to(dev)
+    if model.device != mesh.first:
+        model.to(mesh.first)
+    on = _replicas(model, mesh)
     empty = (np.zeros(0, np.int64), np.zeros((0, cfg.output_dim), np.float32))
     per, groups = _prep_corpus_groups(
         cfg, structures, L, keep_paired_neighbors, mask_threshold, max_programs
@@ -386,7 +426,7 @@ def embed_corpus_windows(model: GINModel, structures, L: int, keep_paired_neighb
     results = [empty] * len(structures)
     embed_group = _embed_group if _dense_forward_ok(cfg) else _embed_group_compact
     for n_cap, idxs in groups.items():
-        emb = embed_group(model, per, n_cap, idxs, L, keep_paired_neighbors)
+        emb = embed_group(model, per, n_cap, idxs, L, keep_paired_neighbors, on=on)
         if wire == "f16":
             emb = emb.to(torch.float16)
         emb_np = emb.cpu().numpy().astype(np.float32, copy=False)

@@ -31,7 +31,10 @@ the same flags (plus ``--device``), stages and output files.
 path off, as in the JAX package: the progressive stage then scores each
 merge on the host (library mode, float64 sums), runs one batched DP per
 level and traces back and merges on the host, and refinement scores on
-the host.  ``--data-parallel`` over several cards is ROADMAP item 11.
+the host.  ``--data-parallel`` shards the pairwise posteriors and the
+consistency rounds' pair axis over every visible card
+(``parallel/mesh.py``); the progressive stage and the pools run on the
+first, as the JAX package runs them unsharded.
 """
 
 from __future__ import annotations
@@ -56,7 +59,7 @@ from ginfinity_tpu_torch.ops.library_pool import (
     run_library_pool,
 )
 from ginfinity_tpu_torch.ops.pairhmm import (
-    _pair_posteriors_from_embs,
+    pair_posteriors_from_embs_sharded,
     profile_align_batch_ops,
     profile_align_batch_ops_exact,
 )
@@ -65,6 +68,7 @@ from ginfinity_tpu_torch.ops.profile_pool import (
     pool_padded_len,
     run_progressive_pool,
 )
+from ginfinity_tpu_torch.parallel.mesh import DataMesh, data_parallel_mesh
 from ginfinity_tpu_torch.utils.device import disable_tf32, resolve_device
 from ginfinity_tpu_torch.utils.io import cell_text, read_table
 from ginfinity_tpu_torch.utils.native import parse_float_matrix
@@ -332,7 +336,45 @@ def _densify(vals: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out.scatter_add_(2, idx, vals)
 
 
-def _consistency_rounds_on_slabs(kv, ki, pairs, N, rounds, lam, pmin, k):
+def _densified(kv: torch.Tensor, ki: torch.Tensor, dev) -> tuple[torch.Tensor, torch.Tensor]:
+    """The slabs dense on ``dev``, and a float64 copy for the products."""
+    Pd = _densify(kv.to(dev), ki.to(dev))
+    return Pd, Pd.to(_F64)
+
+
+def _round_block(Pd, P64, cnt, lam_t, one_minus, pmin_f: float, k: int, tt, sA, sB,
+                 p0: int, p1: int):
+    """One round's update of pairs ``p0:p1`` from the densified slabs ``Pd``
+    (and their float64 copy ``P64``) on one device: the new row slabs
+    ``(values, indices)`` ``[p1 - p0, W, k]``."""
+    dev, dt = Pd.device, Pd.dtype
+    W = Pd.shape[1]
+    acc = torch.zeros((p1 - p0, W, W), dtype=_F64, device=dev)
+    lo, hi = np.searchsorted(tt, [p0, p1])
+    for t0 in range(lo, hi, _TRIPLE_BLOCK):
+        t1 = min(hi, t0 + _TRIPLE_BLOCK)
+        a, b = sA[t0:t1], sB[t0:t1]
+        for fa in (True, False):
+            for fb in (True, False):
+                sel = np.nonzero(((a > 0) == fa) & ((b > 0) == fb))[0]
+                if sel.size == 0:
+                    continue
+                A = P64[torch.from_numpy(np.abs(a[sel]) - 1).to(dev)]
+                Bm = P64[torch.from_numpy(np.abs(b[sel]) - 1).to(dev)]
+                if not fa:
+                    A = A.transpose(1, 2)
+                if not fb:
+                    Bm = Bm.transpose(1, 2)
+                rows = torch.from_numpy(tt[t0:t1][sel] - p0).to(dev)
+                acc.index_add_(0, rows, torch.bmm(A, Bm))
+    newP = one_minus * Pd[p0:p1] + (lam_t * acc.to(dt)) / cnt[p0:p1, None, None]
+    row_kth = torch.topk(newP, k, dim=-1).values[..., -1:]
+    col_kth = torch.topk(newP, k, dim=-2).values[..., -1:, :]
+    keep = (newP >= row_kth) & (newP >= col_kth) & (newP >= pmin_f)
+    return torch.topk(torch.where(keep, newP, 0.0), k, dim=-1)
+
+
+def _consistency_rounds_on_slabs(kv, ki, pairs, N, rounds, lam, pmin, k, mesh=None):
     """Consistency rounds over the row slabs kv/ki [T, W, k] of
     ``pairs`` (forward orientation, (a, b) with a < b).
 
@@ -341,9 +383,16 @@ def _consistency_rounds_on_slabs(kv, ki, pairs, N, rounds, lam, pmin, k):
     signed slot (+t: slab t; -t: its exact transpose).  Products are
     float64 batched products, summed in float64 and rounded once; the
     update and the re-sparsification to the row top-k follow the JAX
-    package's float32 order."""
-    dev, dt = kv.device, kv.dtype
-    T, W, _ = kv.shape
+    package's float32 order.
+
+    The pair axis shards over ``mesh`` (by default the slabs' device
+    alone), as in the JAX package's mesh rounds: the blocks of ``_PAIR_BLOCK`` pairs are cut into contiguous
+    runs, one per device; every device densifies the whole (replicated)
+    slab set, since a pair reads arbitrary other pairs' slabs; and the
+    new slabs are gathered onto the first device after every round.  A
+    block is computed as the unsharded rounds compute it."""
+    dt = kv.dtype
+    T = kv.shape[0]
     slot = np.zeros((N, N), np.int64)
     pa = np.asarray([a for a, _ in pairs], np.int64)
     pb = np.asarray([b for _, b in pairs], np.int64)
@@ -354,52 +403,42 @@ def _consistency_rounds_on_slabs(kv, ki, pairs, N, rounds, lam, pmin, k):
     tt, cc = np.nonzero(validC)
     sA = slot[pa[tt], cc]
     sB = slot[cc, pb[tt]]
-    cnt = torch.from_numpy(np.maximum(validC.sum(1), 1)).to(dev, dt)
-    lam_t = torch.tensor(float(np.float32(lam)), dtype=dt, device=dev)
-    one_minus = torch.tensor(float(np.float32(1.0) - np.float32(lam)), dtype=dt, device=dev)
+    cnt_np = np.maximum(validC.sum(1), 1)
     pmin_f = float(np.float32(pmin))
+    mesh = mesh or DataMesh([kv.device])
+
+    def consts(dev):
+        return (torch.from_numpy(cnt_np).to(dev, dt),
+                torch.tensor(float(np.float32(lam)), dtype=dt, device=dev),
+                torch.tensor(float(np.float32(1.0) - np.float32(lam)), dtype=dt, device=dev))
+
+    shard_consts = mesh.replicate(consts)
+    p0s = list(range(0, T, _PAIR_BLOCK))
+    blocks = mesh.blocks(len(p0s))
     for _ in range(rounds):
-        Pd = _densify(kv, ki)
-        P64 = Pd.to(_F64)
-        new_v = torch.empty_like(kv)
-        new_i = torch.empty_like(ki)
-        for p0 in range(0, T, _PAIR_BLOCK):
-            p1 = min(T, p0 + _PAIR_BLOCK)
-            acc = torch.zeros((p1 - p0, W, W), dtype=_F64, device=dev)
-            lo, hi = np.searchsorted(tt, [p0, p1])
-            for t0 in range(lo, hi, _TRIPLE_BLOCK):
-                t1 = min(hi, t0 + _TRIPLE_BLOCK)
-                a, b = sA[t0:t1], sB[t0:t1]
-                for fa in (True, False):
-                    for fb in (True, False):
-                        sel = np.nonzero(((a > 0) == fa) & ((b > 0) == fb))[0]
-                        if sel.size == 0:
-                            continue
-                        A = P64[torch.from_numpy(np.abs(a[sel]) - 1).to(dev)]
-                        Bm = P64[torch.from_numpy(np.abs(b[sel]) - 1).to(dev)]
-                        if not fa:
-                            A = A.transpose(1, 2)
-                        if not fb:
-                            Bm = Bm.transpose(1, 2)
-                        rows = torch.from_numpy(tt[t0:t1][sel] - p0).to(dev)
-                        acc.index_add_(0, rows, torch.bmm(A, Bm))
-            newP = one_minus * Pd[p0:p1] + (lam_t * acc.to(dt)) / cnt[p0:p1, None, None]
-            row_kth = torch.topk(newP, k, dim=-1).values[..., -1:]
-            col_kth = torch.topk(newP, k, dim=-2).values[..., -1:, :]
-            keep = (newP >= row_kth) & (newP >= col_kth) & (newP >= pmin_f)
-            new_v[p0:p1], new_i[p0:p1] = torch.topk(torch.where(keep, newP, 0.0), k, dim=-1)
-        kv, ki = new_v, new_i
+        dense = mesh.replicate(lambda d: _densified(kv, ki, d))
+        outs: list[list] = [[] for _ in blocks]
+        for step in range(len(blocks[0])):
+            for s, blk in enumerate(blocks):
+                if step < len(blk):
+                    p0 = p0s[blk[step]]
+                    outs[s].append(_round_block(*dense[s], *shard_consts[s], pmin_f,
+                                                k, tt, sA, sB, p0, min(T, p0 + _PAIR_BLOCK)))
+        del dense  # the next round densifies the new slabs
+        kv, ki = (mesh.gather([torch.cat([o[j] for o in out]) for out in outs if out])
+                  for j in range(2))
     return kv, ki
 
 
 def consistency_rounds_to_distances_from_slabs(kv_list, ki_list, pair_chunks, N, k,
                                                rounds, lam: float = 0.5,
                                                pmin: float = 1e-4,
-                                               return_slabs: bool = False):
+                                               return_slabs: bool = False, mesh=None):
     """Consistency rounds on the posterior stage's per-batch slabs (on the
     device), then the guide-tree distances D [N, N] = 1 - mean of each
     pair's kept posteriors.  ``return_slabs`` also returns the pairs and
-    the transformed slabs (the library of library mode)."""
+    the transformed slabs (the library of library mode).  ``mesh`` shards
+    the rounds' pair axis over its devices."""
     pairs = [pr for chunk in pair_chunks for pr in chunk]
     if not pairs:
         D0 = np.zeros((N, N), np.float32)
@@ -407,7 +446,7 @@ def consistency_rounds_to_distances_from_slabs(kv_list, ki_list, pair_chunks, N,
     kv = torch.cat([v[: len(c)] for v, c in zip(kv_list, pair_chunks)])
     ki = torch.cat([i[: len(c)] for i, c in zip(ki_list, pair_chunks)])
     if rounds > 0:
-        kv, ki = _consistency_rounds_on_slabs(kv, ki, pairs, N, rounds, lam, pmin, k)
+        kv, ki = _consistency_rounds_on_slabs(kv, ki, pairs, N, rounds, lam, pmin, k, mesh)
     sums = kv.to(_F64).sum(dim=(-1, -2)).to(kv.dtype).cpu().numpy()
     cnts = (kv > 0).sum(dim=(-1, -2)).to(torch.int32).cpu().numpy()
     D = np.zeros((N, N), np.float32)
@@ -1331,7 +1370,8 @@ def build_parser():
     ap.add_argument("--pair-batch", type=int, default=64,
                     help="Pairs per posterior batch on the device.")
     ap.add_argument("--data-parallel", action="store_true",
-                    help="Accepted; one card runs unsharded (several cards: not ported).")
+                    help="Shard the pairwise posteriors and the consistency rounds over "
+                         "all visible devices (pairs are split over the data mesh).")
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--plot-diagnostics", action="store_true")
     ap.add_argument("--device", default=None,
@@ -1345,10 +1385,6 @@ def main(argv=None):
     if args.topk < 1:
         raise SystemExit("--topk must be >= 1")
     device = resolve_device(args.device)
-    if args.data_parallel and device.type == "cuda" and torch.cuda.device_count() > 1:
-        raise NotImplementedError(
-            "--data-parallel over several cards is not ported yet (ROADMAP queue 1, item 11)"
-        )
     disable_tf32()
     random.seed(args.seed)
     np.random.seed(args.seed)
@@ -1413,8 +1449,15 @@ def main(argv=None):
         print(f"[{name}] {stage_times[name]}s")
         return time.time()
 
+    mesh = None
     if args.data_parallel:
-        print("[embed_msa] --data-parallel: single device visible; running unsharded")
+        mesh = data_parallel_mesh(device)
+        if mesh is not None:
+            print(f"[embed_msa] data parallel over {mesh.size} devices")
+        else:
+            print("[embed_msa] --data-parallel: single device visible; running unsharded")
+    mesh = mesh or DataMesh([device])
+    device = mesh.first
 
     t_stage = time.time()
     print(f"Computing pairwise posteriors for {len(pairs)} pairs...")
@@ -1445,19 +1488,21 @@ def main(argv=None):
                 if r.base_emb is not None and r.base_emb.shape[1] == bdim:
                     base[i, : r.base_emb.shape[0]] = r.base_emb
                     has_base[i] = 1.0
-            base_kw = {"base_embs": torch.from_numpy(base).to(device),
-                       "has_base": torch.from_numpy(has_base).to(device),
+            base_kw = {"base_embs": mesh.replicate(lambda d: torch.from_numpy(base).to(d)),
+                       "has_base": mesh.replicate(lambda d: torch.from_numpy(has_base).to(d)),
                        "seq_weight": float(args.seq_weight)}
-        embs_d = torch.from_numpy(embs).to(device)
-        lens_d = torch.from_numpy(lens).to(device)
-        bs = max(1, int(args.pair_batch))
+        # the pair axis shards: batches a multiple of the mesh size, the
+        # embeddings replicated once per device
+        embs_r = mesh.replicate(lambda d: torch.from_numpy(embs).to(d))
+        lens_r = mesh.replicate(lambda d: torch.from_numpy(lens).to(d))
+        bs = mesh.padded(max(1, int(args.pair_batch)))
         for s in range(0, len(pairs), bs):
             chunk = pairs[s : s + bs]
-            ia = torch.tensor([a for a, _ in chunk], device=device)
-            ib = torch.tensor([b for _, b in chunk], device=device)
-            kv, ki, ex = _pair_posteriors_from_embs(
-                embs_d, lens_d, ia, ib, alpha, beta, args.gap_open, args.gap_extend,
-                1e-4, args.use_local, k, **base_kw)
+            ia = torch.tensor([a for a, _ in chunk])
+            ib = torch.tensor([b for _, b in chunk])
+            kv, ki, ex = pair_posteriors_from_embs_sharded(
+                mesh, embs_r, lens_r, ia, ib, alpha, beta, args.gap_open,
+                args.gap_extend, 1e-4, args.use_local, k, **base_kw)
             slab_kv.append(kv)
             slab_ki.append(ki)
             pair_chunks.append(chunk)
@@ -1497,7 +1542,7 @@ def main(argv=None):
         print(f"Running {args.consistency_rounds} consistency round(s)...")
         out = consistency_rounds_to_distances_from_slabs(
             slab_kv, slab_ki, pair_chunks, N, k, args.consistency_rounds,
-            lam=0.5, pmin=1e-4, return_slabs=want_library,
+            lam=0.5, pmin=1e-4, return_slabs=want_library, mesh=mesh,
         )
         if want_library:
             D, lib_pairs, lib_v, lib_i = out

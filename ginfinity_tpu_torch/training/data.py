@@ -186,8 +186,9 @@ def iter_pair_batches(
 # bucket (similar sizes land in one stack, order within a bucket stays
 # random), and each stack of n_dev batches gets ladder caps from its own
 # maxima.  Remainder batches (< n_dev) are yielded unstacked for a
-# single-device step; nothing is dropped.  The training CLI runs one
-# device; several cards are ROADMAP queue 1, item 11.
+# single-device step; nothing is dropped.  The training CLI's
+# --data-parallel runs each stack's batch s on the mesh's device s
+# (training/train.py, make_train_step(mesh=)).
 # --------------------------------------------------------------------------
 
 
@@ -223,6 +224,18 @@ def _stack(batches):
         for f in dataclasses.fields(first)
         if isinstance(getattr(first, f.name), torch.Tensor)
         or dataclasses.is_dataclass(getattr(first, f.name))
+    })
+
+
+def _unstack(batch, s: int):
+    """Batch ``s`` of a stack made by :func:`_stack`."""
+    if isinstance(batch, torch.Tensor):
+        return batch[s]
+    return dataclasses.replace(batch, **{
+        f.name: _unstack(getattr(batch, f.name), s)
+        for f in dataclasses.fields(batch)
+        if isinstance(getattr(batch, f.name), torch.Tensor)
+        or dataclasses.is_dataclass(getattr(batch, f.name))
     })
 
 

@@ -14,7 +14,15 @@ Loss modes:
   regression: MSE(1 - cos(a, p), target)
   alignment:  AlignmentContrastiveLoss on gathered node subsets
 
-Several cards (the JAX step's ``mesh=``) are ROADMAP queue 1, item 11.
+With a ``mesh`` (``parallel/mesh.py``) the steps are the JAX package's
+``shard_map`` steps: batch ``s`` of a stacked batch runs on the mesh's
+device ``s`` against a replica of the parameters, with a dropout
+generator of its own (seeded from the step generator's seed, the step
+count and ``s``, as ``fold_in(rng, axis_index("data"))``); the losses, gradients and new
+model states are averaged over the shards (``pmean``: summed in shard
+order on the first device), so batch norm's statistics are each shard's
+own and its running statistics are averaged; then one Adam step updates
+the parameters on the first device.
 """
 
 from __future__ import annotations
@@ -184,12 +192,75 @@ def alignment_loss_fn(loss_cfg: AlignmentLossConfig = AlignmentLossConfig()):
 # -- steps --------------------------------------------------------------------
 
 
-def make_train_step(model_config: GINConfig, loss_fn: Callable):
+def shard_generators(generator: torch.Generator, mesh, step: int) -> list[torch.Generator]:
+    """One dropout generator per shard, on its device, seeded from the
+    step's ``generator`` (its seed), the step count and the shard index,
+    as the JAX package folds the shard index into each step's key.
+    Nothing is drawn from ``generator``: a draw from a card's generator
+    is read back on the host, which would then wait for the card every
+    step.  A resume restores the step count, so it replays the seeds."""
+    return [torch.Generator(device=d).manual_seed(int(np.random.SeedSequence(
+        [generator.initial_seed(), step, s]).generate_state(1, np.uint64)[0]) % 2**63)
+        for s, d in enumerate(mesh.devices)]
+
+
+def _replicated(mesh, params: Params, model_state: State) -> list[tuple]:
+    """``(params, model_state)`` per shard: the first device's own leaves
+    (gradients flow to them), on each other device a copy whose leaves
+    require grad."""
+    first = mesh.first
+
+    def make(d):
+        if d == first:
+            return params, model_state
+        return (tree_map(lambda t: t.detach().to(d).requires_grad_(True), params),
+                tree_map(lambda t: t.to(d), model_state))
+
+    return mesh.replicate(make)
+
+
+def _sharded_losses(model_config, loss_fn, mesh, ts, batch, generators):
+    """Each shard's ``(loss, new model state, parameter leaves)`` of its
+    batch of the stack, enqueued shard after shard."""
+    from ginfinity_tpu_torch.training.data import _unstack
+
+    out = []
+    for s, (d, (params, mstate)) in enumerate(zip(mesh.devices,
+                                                  _replicated(mesh, ts.params, ts.model_state))):
+        sub = _unstack(batch, s).to(d)
+        loss, new_state = loss_fn(model_config, params, mstate, sub,
+                                  None if generators is None else generators[s])
+        out.append((loss, new_state, [leaf for _, leaf in _leaves((), params)]))
+    return out
+
+
+def _mean_tree(mesh, trees: list):
+    """``pmean`` of equal-shaped trees, leaf by leaf."""
+    flats = [dict(_leaves((), t)) for t in trees]
+    means = {p: mesh.mean([f[p] for f in flats]) for p in flats[0]}
+
+    def rebuild(path, node):
+        if isinstance(node, dict):
+            return {k: rebuild(path + (k,), v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [rebuild(path + (str(i),), v) for i, v in enumerate(node)]
+        return means[path]
+
+    return rebuild((), trees[0])
+
+
+def make_train_step(model_config: GINConfig, loss_fn: Callable, mesh=None):
     """``step(ts, batch, generator, marks=None) -> (ts, loss)``: forward
     (train mode), loss, backward and one Adam step, in place on ``ts``;
     ``batch`` on the state's device, ``loss`` a detached 0-d tensor.
     ``marks``, when given, is called with ``"forward"``, ``"backward"``
-    and ``"adam"`` as each stage is enqueued (the smoke's CUDA events)."""
+    and ``"adam"`` as each stage is enqueued (the smoke's CUDA events).
+
+    With ``mesh``: the same signature, but ``batch`` is a stack (leading
+    axis ``mesh.size``, on any device) and the state lies on the mesh's
+    first device; the loss is the shards' mean."""
+    if mesh is not None:
+        return _make_sharded_train_step(model_config, loss_fn, mesh)
 
     def step(ts: TrainState, batch, generator: torch.Generator, marks=None):
         ts.optimizer.zero_grad(set_to_none=True)
@@ -209,12 +280,43 @@ def make_train_step(model_config: GINConfig, loss_fn: Callable):
     return step
 
 
-def make_eval_step(model_config: GINConfig, loss_fn: Callable):
+def _make_sharded_train_step(model_config: GINConfig, loss_fn: Callable, mesh):
+    def step(ts: TrainState, batch, generator: torch.Generator, marks=None):
+        ts.optimizer.zero_grad(set_to_none=True)
+        shards = _sharded_losses(model_config, loss_fn, mesh, ts, batch,
+                                 shard_generators(generator, mesh, ts.step))
+        if marks is not None:
+            marks("forward")
+        grads = [torch.autograd.grad(loss, leaves, allow_unused=True)
+                 for loss, _, leaves in shards]
+        if marks is not None:
+            marks("backward")
+        for k, leaf in enumerate(shards[0][2]):
+            per = [g[k] for g in grads]
+            if any(g is not None for g in per):
+                leaf.grad = mesh.mean([torch.zeros_like(leaf) if g is None else g
+                                       for g in per])
+        ts.optimizer.step()
+        if marks is not None:
+            marks("adam")
+        ts.model_state = tree_map(torch.Tensor.detach,
+                                  _mean_tree(mesh, [st for _, st, _ in shards]))
+        ts.step += 1
+        return ts, mesh.mean([loss.detach() for loss, _, _ in shards])
+
+    return step
+
+
+def make_eval_step(model_config: GINConfig, loss_fn: Callable, mesh=None):
     """Loss only, in inference mode (no dropout, batch norm's running
-    statistics, no gradients): ``eval_step(ts, batch) -> loss``."""
+    statistics, no gradients): ``eval_step(ts, batch) -> loss``; with
+    ``mesh``, of a stacked batch, the shards' mean."""
 
     @torch.no_grad()
     def eval_step(ts: TrainState, batch):
+        if mesh is not None:
+            shards = _sharded_losses(model_config, loss_fn, mesh, ts, batch, None)
+            return mesh.mean([loss for loss, _, _ in shards])
         return loss_fn(model_config, ts.params, ts.model_state, batch, None)[0]
 
     return eval_step

@@ -11,7 +11,9 @@ multi-round JSON schedules with checkpoint chaining and keep/delete
 weights, Ctrl-C with the interactive best-weights save,
 ``--diagnostic-alignment`` PNGs, ``--fit-node-stats``, and
 ``--save-every``/``--resume-from`` (``torch.save`` files in place of
-orbax, the last 3 kept).  Runs on the card unless ``--device cpu``.
+orbax, the last 3 kept), ``--data-parallel`` over every visible card
+(``training/train.py``'s mesh steps).  Runs on the card unless
+``--device cpu``.
 Without pandas: the dataset is read by ``utils/io.py::read_table`` and
 grouped, sampled and split as the JAX CLI's pandas calls do it.  The
 saved checkpoint is the reference's ``.pth``.
@@ -32,6 +34,7 @@ import numpy as np
 import torch
 
 from ginfinity_tpu_torch.models.gine import init_params
+from ginfinity_tpu_torch.parallel.mesh import data_parallel_mesh
 from ginfinity_tpu_torch.utils.device import disable_tf32, resolve_device
 from ginfinity_tpu_torch.utils.io import Table, log_information, log_setup, read_table
 
@@ -448,15 +451,18 @@ def _fit_node_stats_on_train(args, cfg, params, state, train_ds, log_path):
     return new_state
 
 
-def _epoch_mean(losses: list) -> float:
+def _epoch_mean(losses: list, weights: list | None = None) -> float:
     """The per-batch losses' mean as the JAX CLI forms it: a float64 sum
-    of the float32 values in order, over their count.  One download."""
+    of the float32 values in order, each times its weight (a stacked
+    batch's loss, the mean over its ``n_dev`` shards, counts ``n_dev``
+    times), over the weights' sum.  One download."""
     if not losses:
         return 0.0
+    weights = weights or [1] * len(losses)
     running = 0.0
-    for v in torch.stack(losses).cpu().tolist():
-        running += v
-    return running / len(losses)
+    for v, w in zip(torch.stack(losses).cpu().tolist(), weights):
+        running += v * w
+    return running / sum(weights)
 
 
 def run_training(args, cfg, params, state, train_df, val_df, alignment_map,
@@ -469,6 +475,15 @@ def run_training(args, cfg, params, state, train_df, val_df, alignment_map,
     mode = args.training_mode
     rng_np = np.random.default_rng(args.seed)
 
+    # data-parallel training: each stack of n_dev batches shards over the
+    # mesh (one batch a device); stacks need one padded shape, so the
+    # batches come from the length-bucketed plans of training/data.py
+    mesh = data_parallel_mesh(device) if getattr(args, "data_parallel", False) else None
+    if mesh is not None:
+        device = mesh.first
+        print(f"[train] data parallel over {mesh.size} devices")
+    n_dev = mesh.size if mesh is not None else 1
+
     if mode == "triplet":
         train_ds = D.TripletDataset(train_df, args.graph_encoding, args.seq_weight)
         val_ds = D.TripletDataset(val_df, args.graph_encoding, args.seq_weight)
@@ -476,12 +491,18 @@ def run_training(args, cfg, params, state, train_df, val_df, alignment_map,
         make_iter = lambda ds, shuffle: D.iter_triplet_batches(
             ds, args.batch_size, rng_np if shuffle else None
         )
+        make_dp_iter = lambda ds, shuffle: D.iter_graph_pair_batches_dp(
+            ds, args.batch_size, n_dev, rng_np if shuffle else None, D._triplet_batch
+        )
     elif mode == "regression":
         train_ds = D.PairDataset(train_df, args.graph_encoding, args.seq_weight)
         val_ds = D.PairDataset(val_df, args.graph_encoding, args.seq_weight)
         loss_fn = T.regression_loss_fn()
         make_iter = lambda ds, shuffle: D.iter_pair_batches(
             ds, args.batch_size, rng_np if shuffle else None
+        )
+        make_dp_iter = lambda ds, shuffle: D.iter_graph_pair_batches_dp(
+            ds, args.batch_size, n_dev, rng_np if shuffle else None, D._pair_batch
         )
     else:
         train_ds = D.AlignmentDataset(
@@ -515,22 +536,41 @@ def run_training(args, cfg, params, state, train_df, val_df, alignment_map,
             max_negatives=max_negatives, hard_negative_fraction=hard_frac,
             debug_log=debug_log,
         )
+        make_dp_iter = lambda ds, shuffle: D.iter_alignment_batches_dp(
+            ds, args.batch_size, max_unaligned, n_dev, rng_np if shuffle else None,
+            max_negatives=max_negatives, hard_negative_fraction=hard_frac,
+            debug_log=debug_log,
+        )
 
     params = T.tree_map(lambda t: t.to(device), params)
     state = T.tree_map(lambda t: t.to(device), state)
     ts = T.TrainState.create(params, state, lr)
-    train_step = T.make_train_step(cfg, loss_fn)
-    eval_step = T.make_eval_step(cfg, loss_fn)
+    train_step_single = T.make_train_step(cfg, loss_fn)
+    eval_step_single = T.make_eval_step(cfg, loss_fn)
+    # leftover (< n_dev) batches run on the single-device steps: nothing
+    # is dropped
+    train_step = T.make_train_step(cfg, loss_fn, mesh) if mesh else train_step_single
+    eval_step = T.make_eval_step(cfg, loss_fn, mesh) if mesh else eval_step_single
     generator = torch.Generator(device=device).manual_seed(args.seed)
 
+    def iter_annotated(ds, shuffle):
+        """``(batch, stacked)`` pairs; a stacked batch carries n_dev batches."""
+        if mesh is None:
+            return ((b, False) for b in make_iter(ds, shuffle))
+        return make_dp_iter(ds, shuffle)
+
     def avg_loss(ds, max_fraction=None):
-        batches = list(make_iter(ds, shuffle=False))
+        batches = list(iter_annotated(ds, shuffle=False))
         if max_fraction is not None and math.isfinite(max_fraction):
             limit = min(len(batches), max(1, math.ceil(len(batches) * max_fraction)))
             batches = batches[:limit]
         if not batches:
             return float("nan")
-        return _epoch_mean([eval_step(ts, b.to(device)) for b in batches])
+        # a stacked eval is the mean over n_dev batches: it weighs n_dev
+        return _epoch_mean(
+            [eval_step(ts, b) if stacked else eval_step_single(ts, b.to(device))
+             for b, stacked in batches],
+            [n_dev if stacked else 1 for _, stacked in batches])
 
     initial_train = avg_loss(train_ds, args.initial_eval_fraction)
     initial_val = avg_loss(val_ds, args.initial_eval_fraction)
@@ -572,15 +612,25 @@ def run_training(args, cfg, params, state, train_df, val_df, alignment_map,
         log_information(log_path, {"Resumed from": args.resume_from,
                                    "Resume epoch": start_epoch})
     last_epoch = start_epoch - 1
+    leftover_note = False
     interrupted = False
     try:
         for epoch in range(start_epoch, num_epochs):
             last_epoch = epoch
-            losses = []
-            for b in make_iter(train_ds, shuffle=True):
-                ts, loss = train_step(ts, b.to(device), generator)
+            losses, weights = [], []
+            for b, stacked in iter_annotated(train_ds, shuffle=True):
+                if stacked:
+                    ts, loss = train_step(ts, b, generator)
+                else:
+                    ts, loss = train_step_single(ts, b.to(device), generator)
                 losses.append(loss)
-            avg_train = _epoch_mean(losses)
+                weights.append(n_dev if stacked else 1)
+            n_leftover = weights.count(1) if mesh is not None else 0
+            if n_leftover and not leftover_note:
+                print(f"[train] {n_leftover}/{sum(weights)} batch(es) per epoch run "
+                      f"single-device (remainder of the {n_dev}-way stacks)")
+                leftover_note = True
+            avg_train = _epoch_mean(losses, weights)
 
             # per-epoch multiplicative LR decay, held in float32 by Adam
             current_lr *= decay_rate
@@ -815,8 +865,8 @@ def build_parser():
     parser.add_argument("--schedule", type=str, default=None)
     parser.add_argument("--data-parallel", dest="data_parallel",
                         action="store_true", default=False,
-                        help="Shard training batches over all cards: one card "
-                             "runs single-device; several are not ported yet.")
+                        help="Shard training batches over all visible devices "
+                             "(data-parallel; gradients averaged over the shards).")
     return parser
 
 
@@ -890,10 +940,6 @@ def main(argv=None):
     device = resolve_device(args.device)
     if device.type == "cuda":
         disable_tf32()
-    if args.data_parallel and device.type == "cuda" and torch.cuda.device_count() > 1:
-        raise NotImplementedError(
-            "--data-parallel over several cards is not ported yet (ROADMAP queue 1, item 11)"
-        )
     random.seed(args.seed)
 
     cfg = make_config(args, hidden_dim)

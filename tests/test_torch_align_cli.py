@@ -155,6 +155,72 @@ def test_align_byte_identical(embeddings, pair, gaps, mode, tmp_path):
     assert f'# mode="{mode}"'.encode() in _bytes(tmp_path / "port" / "out.alignment.tsv")
 
 
+@pytest.fixture(scope="module")
+def flag_inputs(embeddings, tmp_path_factory):
+    """The node-embeddings TSV plus a record ``solo`` of a single node, and
+    a base-embeddings TSV: ``base_embeddings`` with BOS/EOS rows (L + 2,
+    trimmed by both CLIs) for some RNAs and L rows for the others, and an
+    ``alt_base`` column of another width."""
+    from ginfinity_tpu.pipelines.node_embed import serialize_matrix
+
+    d = tmp_path_factory.mktemp("align_flags")
+    table = read_table_auto(embeddings[0])
+    rng = np.random.default_rng(4)
+    nodes = d / "nodes.tsv"
+    with open(nodes, "w") as f:
+        f.write("\t".join(table.columns) + "\n")
+        for r in table.rows:
+            f.write("\t".join(str(r[c]) for c in table.columns) + "\n")
+        solo = rng.normal(size=(1, 128)).astype(np.float32)
+        f.write(f"solo\t{serialize_matrix(solo)}\t.\n")
+    base = d / "base.tsv"
+    with open(base, "w") as f:
+        f.write("rid\tbase_embeddings\talt_base\n")
+        for k, r in enumerate(table.rows + [{"rid": "solo", "node_embeddings": "[[0]]"}]):
+            n = node_embed.parse_matrix(r["node_embeddings"]).shape[0]
+            b = rng.normal(size=(n + 2 * (k % 2), 6)).astype(np.float32)
+            alt = rng.normal(size=(n, 4)).astype(np.float32)
+            f.write(f"{r['rid']}\t{serialize_matrix(b)}\t{serialize_matrix(alt)}\n")
+    return str(nodes), str(base)
+
+
+# (pair, flags, whether the base similarity is blended in): rows 1, 3 and
+# 5 of the base TSV carry BOS/EOS rows, so a pair of one with and one
+# without is a length mismatch that both CLIs skip with a warning
+FLAG_CASES = {
+    "seq_weight_0.3": (("rna_a", "x-7.1"), ["--seq-weight", "0.3"], True),
+    "seq_weight_0.7": (("rna_b", "rna d"), ["--seq-weight", "0.7"], True),
+    "base_embeds_col": (("rna_a", "rna_e"), ["--seq-weight", "0.5", "--base-embeds-col",
+                                             "alt_base"], True),
+    "save_components": (("x-7.1", "rna_e"), ["--seq-weight", "0.3", "--save-components"],
+                        True),
+    "local": (("rna_b", "rna/f"), ["--seq-weight", "0.3", "--mode", "local"], True),
+    "length_mismatch": (("rna_a", "rna_b"), ["--seq-weight", "0.3", "--save-components"],
+                        False),
+    "single_node": (("solo", "rna_e"), ["--seq-weight", "0.3", "--save-components"], True),
+    "single_node_local": (("rna_a", "solo"), ["--mode", "local"], False),
+}
+
+
+@pytest.mark.parametrize("case", list(FLAG_CASES))
+def test_align_flags_byte_identical(flag_inputs, case, tmp_path):
+    """``--seq-weight``, ``--base-input``, ``--base-embeds-col``,
+    ``--save-components``, local mode and a single-node record: every
+    file the JAX CLI writes, byte for byte."""
+    nodes, base = flag_inputs
+    pair, extra, blended = FLAG_CASES[case]
+    args = ["--input", nodes, "--id-column", "rid", "--rna1", pair[0], "--rna2", pair[1],
+            "--base-input", base, "--structure-column-name", "secondary_structure", *extra]
+    jalign.main([*args, "--output-prefix", str(tmp_path / "jax" / "out")])
+    align.main([*args, "--output-prefix", str(tmp_path / "port" / "out"), "--device", "cpu"])
+    ref, got = _tree(tmp_path / "jax"), _tree(tmp_path / "port")
+    assert sorted(got) == sorted(ref)
+    for name in ref:
+        assert got[name] == ref[name], name
+    assert (b"# seq_weight=" in got["out.alignment.tsv"]) == blended
+    assert ("out.matrix.base.tsv" in got) == (blended and "--save-components" in extra)
+
+
 def test_align_default_prefix_and_no_structures(embeddings, tmp_path, monkeypatch):
     """Without --output-prefix both write next to the working directory
     under ``<input stem>__<rna1>__vs__<rna2>``; without a structure column

@@ -102,6 +102,36 @@ def test_native_checkpoint_loads(name, tmp_path):
     _assert_trees_equal(s, cs)
 
 
+ROUND_TRIP = {**CONFIGS, "batch_norm_set2set": dict(hidden_dim=16, output_dim=8, gin_layers=2,
+                                                   norm_type="batch", pooling_type="set2set")}
+
+
+@pytest.mark.parametrize("name", list(ROUND_TRIP))
+def test_native_checkpoint_round_trip_both_ways(name, tmp_path):
+    """``save_checkpoint``: the port's archive loads into the JAX package as
+    JAX's own archive does, and JAX's archive into the port as the
+    tensors ``params_from_jax`` carries; config and ``extra`` both ways."""
+    jc, params, state = _jax_model(ROUND_TRIP[name], seed=3)
+    cfg = GINConfig.create(**ROUND_TRIP[name])
+    p, s = ckpt.params_from_jax(cfg, _np(params), _np(state))
+    extra = {"step": 5, "note": "round trip", "losses": [0.5, 0.25]}
+    jpath, ppath = str(tmp_path / "jax.gin.zip"), str(tmp_path / "sub" / "port.gin.zip")
+    jckpt.save_checkpoint(jpath, jc, params, state, extra_metadata=extra)
+    ckpt.save_checkpoint(ppath, cfg, p, s, extra_metadata=extra)
+    want = jckpt.load_checkpoint(jpath)
+    got = jckpt.load_checkpoint(ppath)
+    assert got[0] == want[0] == jc and got[3] == want[3] == extra
+    _assert_trees_equal(_np(got[1]), _np(want[1]))
+    _assert_trees_equal(_np(got[2]), _np(want[2]))
+    for path in (jpath, ppath):
+        cfg2, p2, s2, extra2 = ckpt.load_checkpoint(path)
+        assert cfg2 == cfg and extra2 == extra
+        _assert_trees_equal(p2, p)
+        _assert_trees_equal(s2, s)
+    ckpt.save_checkpoint(ppath, cfg, p, s)
+    assert ckpt.load_checkpoint(ppath)[3] == jckpt.load_checkpoint(ppath)[3] == {}
+
+
 @pytest.mark.parametrize("md", [
     {"hidden_dim": 64, "output_dim": 32},
     {"hidden_dim": 64, "output_dim": 32, "node_feature_dim": 3},

@@ -14,6 +14,7 @@ from ginfinity_tpu.pipelines import fast_windows as jfw
 from ginfinity_tpu.pipelines.msa_eval import random_structure
 from ginfinity_tpu_torch.models.checkpoint import params_from_jax
 from ginfinity_tpu_torch.models.gine import GINConfig, GINModel
+from ginfinity_tpu_torch.parallel.mesh import DataMesh
 from ginfinity_tpu_torch.pipelines import fast_windows as fw
 
 TOL = 1e-5
@@ -129,8 +130,13 @@ def test_deferred_parts_raise():
     _, pm = _pair(FLAGSHIP_SMALL)
     with pytest.raises(ValueError):
         fw.embed_corpus_windows(pm, ["((...))" * 8], 20, wire="F16", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        fw.embed_corpus_windows(pm, ["((...))" * 8], 20, mesh=object(), device="cpu")
+    # a mesh (ported since) gives the unsharded rows
+    mesh = DataMesh(["cpu"] * 3)
+    for (s0, e0), (s1, e1) in zip(
+            fw.embed_corpus_windows(pm, ["((...))" * 8, "(.)" * 9], 20, device="cpu"),
+            fw.embed_corpus_windows(pm, ["((...))" * 8, "(.)" * 9], 20, mesh=mesh)):
+        np.testing.assert_array_equal(s0, s1)
+        np.testing.assert_array_equal(e0, e1)
     # the compact path (ported since) serves a layer-norm model
     cfg = GINConfig.create(**{**FLAGSHIP_SMALL, "norm_type": "layer"})
     odd = GINModel(cfg, pm.params, pm.state)

@@ -33,6 +33,7 @@ import torch
 
 from ginfinity_tpu.ops import pairhmm as jph
 from ginfinity_tpu.pipelines import msa as jmsa
+from ginfinity_tpu_torch.ops import pairhmm as tph
 from ginfinity_tpu_torch.ops.pairhmm import profile_align
 from ginfinity_tpu_torch.pipelines import msa as tmsa
 
@@ -522,7 +523,7 @@ def _run_both(argv, tmp_path, monkeypatch, tree_from_jax=None):
     _spy(monkeypatch, jmsa, "build_guide_tree", logs["jax"][0])
     _spy(monkeypatch, jph, "_pair_posteriors_from_embs", logs["jax"][1])
     _spy(monkeypatch, tmsa, "build_guide_tree", logs["torch"][0])
-    _spy(monkeypatch, tmsa, "_pair_posteriors_from_embs", logs["torch"][1])
+    _spy(monkeypatch, tph, "_pair_posteriors_from_embs", logs["torch"][1])
     if tree_from_jax is not None:
         monkeypatch.setattr(tmsa, "build_guide_tree", lambda D, method="nj": tree_from_jax)
     out = {}

@@ -4,8 +4,10 @@ to the JAX package's ``TopKSearcher`` on the same corpus: the cases of
 tie rule (score, then the lower corpus index).
 
 The JAX side shards the corpus over the 8 CPU devices of the test mesh
-and the port runs on one device, so the two scan different tiles: they
-agree on ids up to near-ties, and on distances within the bars below."""
+and the port here runs on one device (its default on the CPU), so the
+two scan different tiles: they agree on ids up to near-ties, and on
+distances within the bars below.  ``tests/test_torch_mesh.py`` holds the
+port's 8-shard search to the JAX one."""
 
 import numpy as np
 import pytest
@@ -14,6 +16,7 @@ import torch
 from ginfinity_tpu.parallel.search import TopKSearcher as JSearcher
 from ginfinity_tpu.parallel.search import brute_force_topk as jbrute
 from ginfinity_tpu_torch.parallel import search as search_mod
+from ginfinity_tpu_torch.parallel.mesh import DataMesh
 from ginfinity_tpu_torch.parallel.search import TopKSearcher, brute_force_topk, recall_at_k
 
 # distances of the scan against a float32 brute force: both are float32
@@ -116,7 +119,7 @@ def test_int8_device_rescore_recall(data, metric):
     with no host corpus."""
     corpus, queries = data
     s = _port(corpus, metric=metric, query_block=64, storage="int8")
-    assert s._host_corpus is None and s._resid is not None
+    assert s._host_corpus is None and s._shards[0].resid is not None
     v, i = s.search(queries, k=10)
     tv, ti = brute_force_topk(corpus, queries, 10, metric=metric)
     assert recall_at_k(i, ti) == 1.0
@@ -132,13 +135,14 @@ def test_int8_quantisation_matches_jax_numpy(data):
     s = _port(corpus, storage="int8")
     sc = np.maximum(np.max(np.abs(corpus), axis=1) / 127.0, 1e-12).astype(np.float32)
     q = np.clip(np.rint(corpus / sc[:, None]), -127, 127).astype(np.int8)
-    np.testing.assert_array_equal(s._corpus[:1000].numpy(), q)
-    np.testing.assert_array_equal(s._scale[:1000].numpy(), sc)
+    sh = s._shards[0]
+    np.testing.assert_array_equal(sh.corpus[:1000].numpy(), q)
+    np.testing.assert_array_equal(sh.scale[:1000].numpy(), sc)
     err = corpus - q.astype(np.float32) * sc[:, None]
     s2 = np.maximum(np.max(np.abs(err), axis=1) / 127.0, 1e-12).astype(np.float32)
     q2 = np.clip(np.rint(err / s2[:, None]), -127, 127).astype(np.int8)
-    np.testing.assert_array_equal(s._resid[:1000].numpy(), q2)
-    np.testing.assert_array_equal(s._scale2[:1000].numpy(), s2)
+    np.testing.assert_array_equal(sh.resid[:1000].numpy(), q2)
+    np.testing.assert_array_equal(sh.scale2[:1000].numpy(), s2)
 
 
 def test_int8_gram_is_exact_integer_product():
@@ -149,10 +153,11 @@ def test_int8_gram_is_exact_integer_product():
     s = _port(corpus, storage="int8", rescore="host")
     q, qs = search_mod._quantize_rows(torch.from_numpy(corpus[:3]))
     got = s._gram(q, qs, 0, 40)
-    dots = q.numpy().astype(np.int64) @ s._corpus[:40].numpy().astype(np.int64).T
+    sh = s._shards[0]
+    dots = q.numpy().astype(np.int64) @ sh.corpus[:40].numpy().astype(np.int64).T
     assert np.abs(dots).max() >= 2**24  # beyond one float32 chunk
-    want = (dots.astype(np.float32) * qs.numpy()[:, None]) * s._scale[:40].numpy()[None, :]
-    want = 2.0 * want - s._sqnorm[:40].numpy()[None, :]
+    want = (dots.astype(np.float32) * qs.numpy()[:, None]) * sh.scale[:40].numpy()[None, :]
+    want = 2.0 * want - sh.sqnorm[:40].numpy()[None, :]
     np.testing.assert_array_equal(got.numpy(), want)
 
 
@@ -165,7 +170,7 @@ def test_device_rescore_k_beyond_candidate_cap(monkeypatch):
     corpus = rng.normal(size=(70000, 8)).astype(np.float32)
     queries = rng.normal(size=(8, 8)).astype(np.float32)
     s = _port(corpus, query_block=8, storage="int8")
-    assert s.corpus_tile * 2 <= s._corpus.shape[0], "needs >= 2 tiles"
+    assert s.corpus_tile * 2 <= s._shards[0].corpus.shape[0], "needs >= 2 tiles"
     v, i = s.search(queries, k=64)
     assert v.shape == (8, 64) and i.shape == (8, 64)
     tv, ti = brute_force_topk(corpus, queries, 64)
@@ -209,7 +214,7 @@ def test_running_merge_over_many_tiles():
     queries = rng.normal(size=(5, 16)).astype(np.float32)
     fast = _port(corpus, query_block=8)
     exact = _port(corpus, query_block=8, rescore="host")
-    assert fast._corpus.shape[0] // fast.corpus_tile == 3
+    assert fast._shards[0].corpus.shape[0] // fast.corpus_tile == 3
     vf, i_f = fast.search(queries, k=300)
     ve, i_e = exact.search(queries, k=300)
     tv, ti = brute_force_topk(corpus, queries, 300)
@@ -327,13 +332,13 @@ def test_argument_errors_and_mesh():
         with pytest.raises(ValueError):
             _port(corpus, **kw)
 
-    class Mesh:
-        def __init__(self, n):
-            self.n = n
-
-        def size(self):
-            return self.n
-
-    with pytest.raises(NotImplementedError, match="item 11"):
-        _port(corpus, mesh=Mesh(2))
-    assert _port(corpus, mesh=Mesh(1)).n == 4
+    # a mesh (ported since): two shards of the padded corpus, one merge
+    rng = np.random.default_rng(8)
+    corpus = rng.normal(size=(300, 8)).astype(np.float32)
+    s2 = _port(corpus, mesh=DataMesh(["cpu", "cpu"]), query_block=8)
+    assert s2.mesh.size == 2 and [sh.base for sh in s2._shards] == [0, 256]
+    v2, i2 = s2.search(corpus[:5], 4)
+    v1, i1 = _port(corpus, mesh=DataMesh(["cpu"]), query_block=8).search(corpus[:5], 4)
+    np.testing.assert_array_equal(i2, i1)
+    np.testing.assert_allclose(v2, v1, rtol=0, atol=1e-5)
+    assert _port(corpus[:4], mesh=DataMesh(["cpu"])).n == 4
