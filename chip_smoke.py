@@ -46,6 +46,19 @@ the port's paths, the embedding paths with a seeded flagship checkpoint
   the consistency slabs where they lie; the profile pool merges on the
   card), each level's traceback by the port's ``value_traceback`` kernel
   (it must launch; K1 and K2 must not);
+* the MSA's consistency round at rRNA length (``msa_long_path``): (a)
+  the round alone on seeded slabs at the CLI's shapes (400 records of
+  1,900-2,000 positions, 2,000 kNN-like pairs, 20 columns a row), whose
+  memo round (every slab dense, ~98 GB) the card cannot hold, so the
+  tiled round runs under the card's default budget: its seconds and peak
+  memory above the resident slabs within the round's estimate, two runs
+  identical, 4 seeded pairs recomputed on the CPU and alone on the card
+  (1 and 3 products to a batched product) identical, and on 100 records
+  and 500 pairs, where both rounds fit, memo and tiled identical, each
+  within its estimate; (b) ``ginfinity-embed-msa`` on 16 records of
+  1,400-1,500 positions, 128-d, in both modes on the pools, under the
+  card's default budget (memo) and 1 MiB below the memo estimate
+  (tiled): the same ``.fasta``, ``.sto`` and ``.aln.tsv``;
 * the MSA tools (``msa_tools_path``, no kernel either): ``--refine-iters
   32`` on the first 100 records of that family in library mode; a 24-record family refined in
   both modes on the card and the CPU; ``msa_eval`` on a known-homology
@@ -145,6 +158,7 @@ import csv
 import dataclasses
 import io
 import json
+import operator
 import os
 import re
 import shutil
@@ -298,6 +312,15 @@ MSA_EXACT_MERGES = 8       # leaf merges held to the numpy oracle DP
 MSA_SLAB_BATCHES = 2       # posterior batches re-run on the CPU
 MSA_SLAB_TOL = 1e-5        # their slabs, card vs CPU, max abs
 TB_SHAPE = (64, 384)       # merges and padded length of the traceback kernel's check
+# msa_long_path: (a) the consistency round alone at rRNA length, on seeded
+# slabs (records, pairs, width, columns a row) whose memo round passes the
+# card's memory, 4 of its pairs recomputed on the CPU, and an instance
+# where both rounds fit; (b) the CLI on a family (records, shortest and
+# longest length) in both modes, memo and tiled
+MSA_LONG = (400, 2_000, 2_000, 20)
+MSA_LONG_BOTH = (100, 500)
+MSA_LONG_CPU_PAIRS = 4
+MSA_LONG_FAMILY = (16, 1_400, 1_500)
 # the MSA tools: refinement on the N = 200 family and on the small one,
 # msa_eval's family (make_family's seed, members, ancestor length), the
 # optimizer's trials and the region (ancestor coordinates) it scores
@@ -1177,11 +1200,13 @@ def bf16_path(tmp: str, cfg, params, state, structures, f32_emb: dict, dev) -> d
     rec["bf16_matmul"] = bf16_matmul_route(dev)
     return rec
 
-def msa_family_tsv(path: str, n: int, lmax: int, d: int = MSA_DIM, seed: int = MSA_SEED) -> str:
+def msa_family_tsv(path: str, n: int, lmax: int, d: int = MSA_DIM, seed: int = MSA_SEED,
+                   lmin: int | None = None) -> str:
     """``bench_msa_scale.py::build_family_tsv`` without pandas: one base
-    matrix, each record a prefix of it plus 0.15 noise (or the base and a
-    noisy tail), values rounded to 4 places, written as
-    ``DataFrame.to_csv`` writes them."""
+    matrix, each record (of length ``lmin``, by default 0.8 ``lmax``, to
+    ``lmax``) a prefix of it plus 0.15 noise (or the base and a noisy
+    tail), values rounded to 4 places, written as ``DataFrame.to_csv``
+    writes them."""
     rng = np.random.default_rng(seed)
     base_len = int(lmax * 0.95)
     base = rng.normal(size=(base_len, d)).astype(np.float32)
@@ -1189,7 +1214,7 @@ def msa_family_tsv(path: str, n: int, lmax: int, d: int = MSA_DIM, seed: int = M
         w = csv.writer(f, delimiter="\t", lineterminator="\n")
         w.writerow(["Name", "node_embeddings"])
         for k in range(n):
-            Lk = int(rng.integers(int(lmax * 0.8), lmax + 1))
+            Lk = int(rng.integers(int(lmax * 0.8) if lmin is None else lmin, lmax + 1))
             if Lk <= base_len:
                 emb = base[:Lk] + 0.15 * rng.normal(size=(Lk, d)).astype(np.float32)
             else:
@@ -1605,6 +1630,189 @@ def traceback_check(dev) -> dict:
                        ns_per_chain_step=ms * 1e6 / (2 * P), states_bytes=ST.numel() * 4)
     rec["max_abs_err"] = max(errs)
     return rec
+
+
+def long_slabs(n: int, n_pairs: int, W: int, k: int, seed: int, dev):
+    """Seeded row slabs for ``msa_long_path`` (a), made on ``dev``: records
+    of length W - 100 .. W; pairs joining each record of a seeded order to
+    the next 1, 2, ... 5 (then 6) records, about 10 neighbours a record,
+    as ``--max-pairs`` picks nearest neighbours; each row of a pair k
+    distinct columns within the partner's length (random gaps of at most
+    (W - 100) / k), values in (0, 1]; rows past the record's length empty,
+    as the posterior stage leaves them."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(W - 100, W + 1, size=n)
+    order = rng.permutation(n)
+    pairs: set = set()
+    d = 1
+    while len(pairs) < n_pairs:
+        for i in range(n - d):
+            if len(pairs) < n_pairs:
+                pairs.add(tuple(sorted((int(order[i]), int(order[i + d])))))
+        d += 1
+    pairs = sorted(pairs)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    T = len(pairs)
+    la = torch.tensor([lens[a] for a, _ in pairs], device=dev)
+    lb = torch.tensor([lens[b] for _, b in pairs], device=dev)
+    ends = torch.randint(1, (W - 100) // k + 1, (T, W, k), generator=g, device=dev).cumsum(-1)
+    room = lb[:, None] - ends[..., -1]
+    off = (torch.rand((T, W), generator=g, device=dev) * (room + 1)).floor().long()
+    live = (torch.arange(W, device=dev)[None, :] < la[:, None])[..., None]
+    ki = torch.where(live, off[..., None] + ends - 1, torch.arange(k, device=dev))
+    kv = (1.0 - torch.rand((T, W, k), generator=g, device=dev)) ** 3 * live
+    return pairs, kv, ki
+
+
+@contextlib.contextmanager
+def dense_budget(mb: int | None):
+    """``GINFINITY_MSA_DENSE_BUDGET_MB`` set to ``mb`` (unset: the card's
+    default) for the block, restored after."""
+    old = os.environ.pop("GINFINITY_MSA_DENSE_BUDGET_MB", None)
+    if mb is not None:
+        os.environ["GINFINITY_MSA_DENSE_BUDGET_MB"] = str(mb)
+    try:
+        yield
+    finally:
+        os.environ.pop("GINFINITY_MSA_DENSE_BUDGET_MB", None)
+        if old is not None:
+            os.environ["GINFINITY_MSA_DENSE_BUDGET_MB"] = old
+
+
+def timed_rounds(kv, ki, pairs, n: int, k: int, dev, mb: int | None = None):
+    """One consistency round on the card under budget ``mb``: the new
+    slabs, and the round's record with its seconds and peak memory.  The
+    memory the round takes above what was resident before must stay
+    within the estimate that chose it."""
+    with dense_budget(mb):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        start = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        out = msa._consistency_rounds_on_slabs(kv, ki, pairs, n, 1, 0.5, 1e-4, k)
+        torch.cuda.synchronize()
+        rec = dict(msa.last_consistency_round, seconds=time.perf_counter() - t0,
+                   peak_bytes=torch.cuda.max_memory_allocated(dev),
+                   peak_reserved_bytes=torch.cuda.max_memory_reserved(dev),
+                   resident_before_bytes=start)
+    estimate = rec[f"{rec['round']}_bytes"]
+    if rec["peak_bytes"] - start > estimate:
+        raise AssertionError(f"the {rec['round']} round took {rec['peak_bytes'] - start} B "
+                             f"above resident, past its estimate {estimate} B")
+    return out, rec
+
+
+def memo_then_tiled(run, same) -> dict:
+    """``run(mb)`` -> (output, record) under the card's default budget (the
+    memo round), then 1 MiB below the memo estimate (the tiled round, on
+    the same blocks); ``same`` must hold for the two outputs."""
+    memo_out, memo = run(None)
+    tiled_out, tiled = run((memo["memo_bytes"] >> 20) - 1)
+    blocks = [(r["pair_block"], r["product_batch"]) for r in (memo, tiled)]
+    if (memo["round"], tiled["round"]) != ("memo", "tiled") or blocks[0] != blocks[1]:
+        raise AssertionError(f"rounds {memo['round']}, {tiled['round']} on blocks {blocks}")
+    if not same(memo_out, tiled_out):
+        raise AssertionError("the tiled round's output differs from the memo round's")
+    return {"memo": memo, "tiled": tiled, "identical": True}
+
+
+def round_of_pairs(kv, ki, pairs, n: int, ids: np.ndarray, k: int, batch: int):
+    """One tiled round's new slabs ``(values, indices)`` of the pairs
+    ``ids`` (ascending) alone, on kv's device, ``batch`` products to a
+    batched product: what ``_consistency_rounds_on_slabs`` gives them."""
+    sched = msa._schedule(pairs, n)
+    return msa._update_pairs(msa._Slabs(kv, ki, kv.device, memo=False), ids, sched,
+                             msa._round_consts(sched[4], 0.5, kv.dtype, kv.device),
+                             float(np.float32(1e-4)), k, batch)
+
+
+def msa_long_path(tmp: str, dev) -> dict:
+    """The consistency round at rRNA length: (a) alone, on seeded slabs
+    (N = 400, T = 2,000, W = 2,000, k = 20) whose memo round the card
+    cannot hold: the tiled round under the card's default budget, its
+    peak memory within its estimate, two runs identical, 4 seeded pairs
+    recomputed on the CPU and alone on the card in batches of 1 and 3
+    products identical; and a smaller instance (N = 100, T = 500) where
+    both rounds fit, identical, each within its estimate; (b)
+    ``ginfinity-embed-msa`` on a 16-record family of
+    L 1,400-1,500, d 128, in both modes on the pools, memo and tiled:
+    the same ``.fasta``, ``.sto`` and ``.aln.tsv``."""
+    torch.cuda.empty_cache()
+    n, T, W, k = MSA_LONG
+    t0 = time.perf_counter()
+    pairs, kv, ki = long_slabs(n, T, W, k, MSA_SEED, dev)
+    torch.cuda.synchronize()
+    a = {"records": n, "pairs": T, "width": W, "k": k,
+         "slabs_seconds": time.perf_counter() - t0,
+         "card_bytes": torch.cuda.get_device_properties(dev).total_memory}
+    outs, runs = [], []
+    for _ in range(2):
+        out, r = timed_rounds(kv, ki, pairs, n, k, dev)
+        outs.append(out)
+        runs.append(r)
+    # dense float64 products, at the card's FP64 tensor-core peak (67 TFLOP/s)
+    tflop = 2 * runs[0]["products"] * W ** 3 / 1e12
+    a.update(runs=runs, product_tflop=tflop, product_bound_seconds=tflop / 67,
+             two_runs_identical=all(torch.equal(x, y) for x, y in zip(outs[0], outs[1])))
+    if runs[0]["round"] != "tiled" or runs[0]["memo_bytes"] <= a["card_bytes"]:
+        raise AssertionError(f"(a) took the {runs[0]['round']} round, memo estimate "
+                             f"{runs[0]['memo_bytes']} B on a {a['card_bytes']} B card")
+    if not a["two_runs_identical"]:
+        raise AssertionError("(a) two card runs of the tiled round differ")
+    ids = np.sort(np.random.default_rng(MSA_SEED).choice(T, MSA_LONG_CPU_PAIRS, replace=False))
+    card = [x[torch.from_numpy(ids).to(dev)] for x in outs[0]]
+    t0 = time.perf_counter()
+    cpu = round_of_pairs(kv.cpu(), ki.cpu(), pairs, n, ids, k, runs[0]["product_batch"])
+    a["cpu_seconds"] = time.perf_counter() - t0
+    a.update(cpu_pairs=[pairs[t] for t in ids.tolist()], cpu_identical=torch.equal(
+        msa._densify(*cpu), msa._densify(*card).cpu()))
+    if not a["cpu_identical"]:
+        raise AssertionError(f"(a) pairs {a['cpu_pairs']}: card and CPU slabs differ")
+    # the products' batching does not reach the sums: those pairs alone,
+    # 1 and 3 products to a batched product, on the card
+    for batch in (1, 3):
+        if not torch.equal(msa._densify(*round_of_pairs(kv, ki, pairs, n, ids, k, batch)),
+                           msa._densify(*card)):
+            raise AssertionError(f"(a) pairs {a['cpu_pairs']} differ in batches of {batch}")
+    a["batches_identical"] = [1, 3, runs[0]["product_batch"]]
+    del outs, kv, ki, card
+
+    n2, T2 = MSA_LONG_BOTH
+    pairs2, kv2, ki2 = long_slabs(n2, T2, W, k, MSA_SEED + 1, dev)
+
+    def run_small(mb):
+        (v, i), r = timed_rounds(kv2, ki2, pairs2, n2, k, dev, mb)
+        return (v.cpu(), i.cpu()), r
+
+    a["both_fit"] = {"records": n2, "pairs": T2, **memo_then_tiled(
+        run_small, lambda x, y: all(torch.equal(p, q) for p, q in zip(x, y)))}
+    del kv2, ki2
+    torch.cuda.empty_cache()
+
+    # (b) the CLI at full width, memo then tiled, each mode
+    fam_n, lmin, lmax = MSA_LONG_FAMILY
+    src = msa_family_tsv(os.path.join(tmp, "long.tsv"), fam_n, lmax, lmin=lmin)
+    b = {"family": {"records": fam_n, "lmin": lmin, "lmax": lmax, "dim": MSA_DIM,
+                    "seed": MSA_SEED}}
+    records = msa.load_tsv(src, "Name", "node_embeddings")
+    for mode in ("library", "profile"):
+        def run_cli(mb, mode=mode):
+            out = os.path.join(tmp, f"{mode}_{'memo' if mb is None else 'tiled'}", "msa")
+            launches = value_traceback.launches
+            with dense_budget(mb):
+                torch.cuda.reset_peak_memory_stats(dev)
+                r = msa_run(src, out, ["--dp-score", mode], str(dev))
+            check_msa_outputs(out, records)
+            r.update(msa.last_consistency_round, peak_bytes=torch.cuda.max_memory_allocated(dev),
+                     traceback_kernel_launches=value_traceback.launches - launches)
+            files = []
+            for suffix in (".fasta", ".sto", ".aln.tsv"):
+                with open(out + suffix, "rb") as f:
+                    files.append(f.read())
+            return files, r
+
+        b[mode] = memo_then_tiled(run_cli, operator.eq)
+    return {"round_alone": a, "cli": b}
 
 
 def truth_msa(members) -> dict:
@@ -2983,6 +3191,9 @@ def run_phases(work: str) -> int:
             tb_launches = msa_rec["traceback_kernel_launches"]
         with phase("msa_tools_path", {"card": card}) as rec:
             rec.update(msa_tools_path(tmp, dev, msa_records, cfg, main_params, main_state))
+
+    with tempfile.TemporaryDirectory() as tmp, phase("msa_long_path", {"card": card}) as rec:
+        rec.update(msa_long_path(tmp, dev))
 
     with phase("traceback_kernel_vs_plain", {"card": card}) as rec:
         tb = traceback_check(dev)

@@ -8,8 +8,10 @@ the same flags (plus ``--device``), stages and output files.
 3-5. per batch of pairs on the device (``ops/pairhmm.py``): cosine ->
    calibrated log-odds, pair-HMM forward/backward posteriors, row-and-
    column top-k sparsification with pmin, kept as row slabs
-6. consistency rounds on the slabs, on the device, then the guide-tree
-   distances 1 - mean(kept posteriors)
+6. consistency rounds on the slabs, on the device (memoized while their
+   estimate fits ``GINFINITY_MSA_DENSE_BUDGET_MB``, tiled past it, as in
+   the JAX package), then the guide-tree distances 1 - mean(kept
+   posteriors)
 7. guide tree (NJ / UPGMA), host numpy
 8. progressive alignment on a device pool: profile mode through
    ``ops/profile_pool.py`` (the reference-exact DP on the column
@@ -325,8 +327,58 @@ def consistency_round(post: dict, N: int, lam: float = 0.5, topk: int = 20,
     return out
 
 
-_PAIR_BLOCK = 256    # pairs updated per block of a round
-_TRIPLE_BLOCK = 256  # (a, C, b) products per batched product
+# Blocks of a round.  Each kind of block keeps its temporaries within
+# min(_BLOCK_BYTES, budget / 8), so every budget of 2 GiB or more gives
+# one plan, whichever round it picks: the batched products of the memo
+# and the tiled round then have the same shapes, and so the same bits.
+_PAIR_BLOCK = 256            # most pairs a block updates
+_PRODUCT_BATCH = 256         # most (a, C, b) products a batched product takes
+_BLOCK_BYTES = 256 << 20
+_PAIR_TEMP = 16              # bytes per W x W cell of a pair block: its float64
+                             # sum, its float32 block and update
+_PRODUCT_TEMP = 32           # ... of a product: two float64 operands, their
+                             # product, one operand before it is oriented
+_SLAB_TEMP = 24              # bytes per slab entry: float32 values, int64
+                             # indices, the round's input and output
+_CPU_BUDGET_MB = 6144        # the JAX package's default
+
+# The most recent call's round (``"memo"`` or ``"tiled"``), its budget,
+# both estimates and its blocks, for the smoke and the tests.
+last_consistency_round: dict = {}
+
+
+def _memo_budget_bytes(devices) -> int:
+    """The memo round's budget on each device of a mesh over ``devices``:
+    ``GINFINITY_MSA_DENSE_BUDGET_MB`` (MiB), as in the JAX package.
+    Unset, the least over ``devices`` of JAX's 6,144 MiB on the CPU and
+    half of a card's memory on a card: a round holds no more than its
+    estimate, and the other half is left to what the process holds when
+    the stage starts (the posterior slabs, the records, and the blocks
+    the caching allocator keeps from earlier stages)."""
+    env = os.environ.get("GINFINITY_MSA_DENSE_BUDGET_MB")
+    if env is not None:
+        return int(env) << 20
+    return min(torch.cuda.get_device_properties(d).total_memory // 2 if d.type == "cuda"
+               else _CPU_BUDGET_MB << 20 for d in devices)
+
+
+def _block_plan(W: int, n_pairs: int, n_products: int, budget: int) -> tuple[int, int]:
+    """(pairs a block, products a batched product) of a round at width W."""
+    cap = min(_BLOCK_BYTES, budget // 8)
+    return (max(1, min(_PAIR_BLOCK, n_pairs, cap // (_PAIR_TEMP * W * W))),
+            max(1, min(_PRODUCT_BATCH, n_products, cap // (_PRODUCT_TEMP * W * W))))
+
+
+def _tiled_consistency_bytes(T: int, W: int, k: int, plan: tuple[int, int]) -> int:
+    """What the tiled round holds on a device: the row slabs and one
+    block of each kind."""
+    return _SLAB_TEMP * T * W * k + (plan[0] * _PAIR_TEMP + plan[1] * _PRODUCT_TEMP) * W * W
+
+
+def _memo_consistency_bytes(T: int, W: int, k: int, plan: tuple[int, int]) -> int:
+    """What the memo round holds on a device: the tiled round's, and
+    every slab dense in float32 and in float64."""
+    return 12 * T * W * W + _tiled_consistency_bytes(T, W, k, plan)
 
 
 def _densify(vals: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -336,63 +388,12 @@ def _densify(vals: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out.scatter_add_(2, idx, vals)
 
 
-def _densified(kv: torch.Tensor, ki: torch.Tensor, dev) -> tuple[torch.Tensor, torch.Tensor]:
-    """The slabs dense on ``dev``, and a float64 copy for the products."""
-    Pd = _densify(kv.to(dev), ki.to(dev))
-    return Pd, Pd.to(_F64)
-
-
-def _round_block(Pd, P64, cnt, lam_t, one_minus, pmin_f: float, k: int, tt, sA, sB,
-                 p0: int, p1: int):
-    """One round's update of pairs ``p0:p1`` from the densified slabs ``Pd``
-    (and their float64 copy ``P64``) on one device: the new row slabs
-    ``(values, indices)`` ``[p1 - p0, W, k]``."""
-    dev, dt = Pd.device, Pd.dtype
-    W = Pd.shape[1]
-    acc = torch.zeros((p1 - p0, W, W), dtype=_F64, device=dev)
-    lo, hi = np.searchsorted(tt, [p0, p1])
-    for t0 in range(lo, hi, _TRIPLE_BLOCK):
-        t1 = min(hi, t0 + _TRIPLE_BLOCK)
-        a, b = sA[t0:t1], sB[t0:t1]
-        for fa in (True, False):
-            for fb in (True, False):
-                sel = np.nonzero(((a > 0) == fa) & ((b > 0) == fb))[0]
-                if sel.size == 0:
-                    continue
-                A = P64[torch.from_numpy(np.abs(a[sel]) - 1).to(dev)]
-                Bm = P64[torch.from_numpy(np.abs(b[sel]) - 1).to(dev)]
-                if not fa:
-                    A = A.transpose(1, 2)
-                if not fb:
-                    Bm = Bm.transpose(1, 2)
-                rows = torch.from_numpy(tt[t0:t1][sel] - p0).to(dev)
-                acc.index_add_(0, rows, torch.bmm(A, Bm))
-    newP = one_minus * Pd[p0:p1] + (lam_t * acc.to(dt)) / cnt[p0:p1, None, None]
-    row_kth = torch.topk(newP, k, dim=-1).values[..., -1:]
-    col_kth = torch.topk(newP, k, dim=-2).values[..., -1:, :]
-    keep = (newP >= row_kth) & (newP >= col_kth) & (newP >= pmin_f)
-    return torch.topk(torch.where(keep, newP, 0.0), k, dim=-1)
-
-
-def _consistency_rounds_on_slabs(kv, ki, pairs, N, rounds, lam, pmin, k, mesh=None):
-    """Consistency rounds over the row slabs kv/ki [T, W, k] of
-    ``pairs`` (forward orientation, (a, b) with a < b).
-
-    Each round densifies every slab once and, per pair (a, b), sums the
-    products of the blocks of its present intermediates C, read through a
-    signed slot (+t: slab t; -t: its exact transpose).  Products are
-    float64 batched products, summed in float64 and rounded once; the
-    update and the re-sparsification to the row top-k follow the JAX
-    package's float32 order.
-
-    The pair axis shards over ``mesh`` (by default the slabs' device
-    alone), as in the JAX package's mesh rounds: the blocks of ``_PAIR_BLOCK`` pairs are cut into contiguous
-    runs, one per device; every device densifies the whole (replicated)
-    slab set, since a pair reads arbitrary other pairs' slabs; and the
-    new slabs are gathered onto the first device after every round.  A
-    block is computed as the unsharded rounds compute it."""
-    dt = kv.dtype
-    T = kv.shape[0]
+def _schedule(pairs, N: int):
+    """A round's host schedule.  Per (a, C, b) triple, in pair order and
+    then ascending C: its pair t, the signed slots of (a, C) and (C, b)
+    (+t: slab t - 1; -t: its exact transpose) and its rank among t's
+    intermediates.  Per pair: its count of intermediates (at least 1)."""
+    T = len(pairs)
     slot = np.zeros((N, N), np.int64)
     pa = np.asarray([a for a, _ in pairs], np.int64)
     pb = np.asarray([b for _, b in pairs], np.int64)
@@ -401,30 +402,135 @@ def _consistency_rounds_on_slabs(kv, ki, pairs, N, rounds, lam, pmin, k, mesh=No
     present = slot != 0
     validC = present[pa] & present[:, pb].T  # [T, N]: intermediates per pair
     tt, cc = np.nonzero(validC)
-    sA = slot[pa[tt], cc]
-    sB = slot[cc, pb[tt]]
-    cnt_np = np.maximum(validC.sum(1), 1)
-    pmin_f = float(np.float32(pmin))
+    starts = np.searchsorted(tt, np.arange(T))
+    return (tt, slot[pa[tt], cc], slot[cc, pb[tt]], np.arange(tt.size) - starts[tt],
+            np.maximum(validC.sum(1), 1))
+
+
+class _Slabs:
+    """A round's input slabs on one device, read as dense blocks.  The
+    memo round densifies every slab once (float32, and a float64 copy for
+    the products); the tiled round keeps the row slabs and densifies the
+    blocks a batch reads each time it reads them.  Both give the same
+    blocks: float32 scatters of the same entries, then exact casts."""
+
+    def __init__(self, kv: torch.Tensor, ki: torch.Tensor, dev, memo: bool):
+        self.dev = dev
+        self.kv, self.ki = kv.to(dev), ki.to(dev)
+        self.Pd = _densify(self.kv, self.ki) if memo else None
+        self.P64 = self.Pd.to(_F64) if memo else None
+
+    def pairs(self, ids: torch.Tensor) -> torch.Tensor:
+        """The float32 blocks of pairs ``ids``."""
+        if self.Pd is not None:
+            return self.Pd[ids]
+        return _densify(self.kv[ids], self.ki[ids])
+
+    def operands(self, idx: torch.Tensor, rev: torch.Tensor) -> torch.Tensor:
+        """The float64 blocks of slabs ``idx``, transposed where ``rev``."""
+        x = (self.P64[idx] if self.P64 is not None
+             else _densify(self.kv[idx], self.ki[idx]).to(_F64))
+        return torch.where(rev[:, None, None] != 0, x.transpose(1, 2), x)
+
+
+def _pair_sums(src: _Slabs, ids: np.ndarray, sched, batch: int) -> torch.Tensor:
+    """Sum over C of P_aC @ P_Cb for the pairs ``ids`` (ascending), float64
+    [len(ids), W, W].  Each pair's products are added in the order of its
+    intermediates, whatever the device and the batching: the products go
+    by rank, then pair, ``batch`` to a batched product, and each run of
+    one rank, in which no pair comes twice, is added at once."""
+    tt, sA, sB, rank, _ = sched
+    sel = np.nonzero(np.isin(tt, ids))[0]
+    sel = sel[np.lexsort((tt[sel], rank[sel]))]
+    a, b = sA[sel], sB[sel]
+    # one upload a block: each product's two slabs and orientations, its row
+    d = torch.from_numpy(np.stack([np.abs(a) - 1, np.abs(b) - 1, a < 0, b < 0,
+                                   np.searchsorted(ids, tt[sel])])).to(src.dev)
+    W = src.kv.shape[1]
+    acc = torch.zeros((len(ids), W, W), dtype=_F64, device=src.dev)
+    for b0 in range(0, sel.size, batch):
+        b1 = min(sel.size, b0 + batch)
+        prod = torch.bmm(src.operands(d[0, b0:b1], d[2, b0:b1]),
+                         src.operands(d[1, b0:b1], d[3, b0:b1]))
+        cuts = [0, *(np.flatnonzero(np.diff(rank[sel[b0:b1]])) + 1), b1 - b0]
+        for s, e in zip(cuts[:-1], cuts[1:]):
+            acc.index_add_(0, d[4, b0 + s:b0 + e], prod[s:e])
+    return acc
+
+
+def _update_pairs(src: _Slabs, ids: np.ndarray, sched, consts, pmin_f: float, k: int,
+                  batch: int):
+    """One round's new row slabs ``(values, indices)`` [len(ids), W, k] of
+    the pairs ``ids``: their float64 sums rounded once, then the JAX
+    package's float32 update and re-sparsification to the row top-k."""
+    cnt, lam_t, one_minus = consts
+    idx = torch.from_numpy(ids).to(src.dev)
+    newP = _pair_sums(src, ids, sched, batch).to(cnt.dtype)
+    newP.mul_(lam_t).div_(cnt[idx, None, None]).add_(one_minus * src.pairs(idx))
+    row_kth = torch.topk(newP, k, dim=-1).values[..., -1:]
+    col_kth = torch.topk(newP, k, dim=-2).values[..., -1:, :]
+    keep = (newP >= row_kth) & (newP >= col_kth) & (newP >= pmin_f)
+    return torch.topk(newP.masked_fill_(~keep, 0.0), k, dim=-1)
+
+
+def _round_consts(cnt_np: np.ndarray, lam: float, dt, dev):
+    """A round's per-pair counts, lam and 1 - lam on ``dev``, in ``dt``,
+    lam rounded to float32 as the JAX package rounds it."""
+    return (torch.from_numpy(cnt_np).to(dev, dt),
+            torch.tensor(float(np.float32(lam)), dtype=dt, device=dev),
+            torch.tensor(float(np.float32(1.0) - np.float32(lam)), dtype=dt, device=dev))
+
+
+def _consistency_rounds_on_slabs(kv, ki, pairs, N, rounds, lam, pmin, k, mesh=None):
+    """Consistency rounds over the row slabs kv/ki [T, W, k] of
+    ``pairs`` (forward orientation, (a, b) with a < b).
+
+    Per pair (a, b), the products of the blocks of its present
+    intermediates C, read through a signed slot (+t: slab t; -t: its
+    exact transpose), are float64 batched products, summed in float64 in
+    ascending C and rounded once; the update and the re-sparsification
+    to the row top-k follow the JAX package's float32 order.
+
+    As in the JAX package, the round is memoized (every slab densified
+    once a round) when ``_memo_consistency_bytes`` fits the budget
+    (``_memo_budget_bytes``), and tiled otherwise (each block densified
+    where a batch reads it, so that only the row slabs stay resident).
+    Both give the same slabs bit for bit at one block plan.
+
+    The pair axis shards over ``mesh`` (by default the slabs' device
+    alone), as in the JAX package's mesh rounds: the pair blocks are cut
+    into contiguous runs, one per device; the memo round densifies the
+    whole (replicated) slab set on every device, since a pair reads
+    arbitrary other pairs' slabs, the tiled round only what its own
+    pairs read; the new slabs are gathered onto the first device after
+    every round.  A block is computed as the unsharded rounds compute it."""
+    T, W = kv.shape[0], kv.shape[1]
+    sched = _schedule(pairs, N)
     mesh = mesh or DataMesh([kv.device])
-
-    def consts(dev):
-        return (torch.from_numpy(cnt_np).to(dev, dt),
-                torch.tensor(float(np.float32(lam)), dtype=dt, device=dev),
-                torch.tensor(float(np.float32(1.0) - np.float32(lam)), dtype=dt, device=dev))
-
-    shard_consts = mesh.replicate(consts)
-    p0s = list(range(0, T, _PAIR_BLOCK))
+    budget = _memo_budget_bytes(mesh.devices)
+    plan = _block_plan(W, T, sched[0].size, budget)
+    memo_bytes = _memo_consistency_bytes(T, W, k, plan)
+    memo = memo_bytes <= budget
+    last_consistency_round.clear()
+    last_consistency_round.update(
+        round="memo" if memo else "tiled", budget_bytes=budget, memo_bytes=memo_bytes,
+        tiled_bytes=_tiled_consistency_bytes(T, W, k, plan), pair_block=plan[0],
+        product_batch=plan[1], pairs=T, products=int(sched[0].size), width=W)
+    pmin_f = float(np.float32(pmin))
+    shard_consts = mesh.replicate(lambda d: _round_consts(sched[4], lam, kv.dtype, d))
+    p0s = list(range(0, T, plan[0]))
     blocks = mesh.blocks(len(p0s))
     for _ in range(rounds):
-        dense = mesh.replicate(lambda d: _densified(kv, ki, d))
+        srcs = mesh.replicate(lambda d: _Slabs(kv, ki, d, memo))
         outs: list[list] = [[] for _ in blocks]
         for step in range(len(blocks[0])):
             for s, blk in enumerate(blocks):
                 if step < len(blk):
                     p0 = p0s[blk[step]]
-                    outs[s].append(_round_block(*dense[s], *shard_consts[s], pmin_f,
-                                                k, tt, sA, sB, p0, min(T, p0 + _PAIR_BLOCK)))
-        del dense  # the next round densifies the new slabs
+                    ids = np.arange(p0, min(T, p0 + plan[0]))
+                    outs[s].append(_update_pairs(srcs[s], ids, sched, shard_consts[s],
+                                                 pmin_f, k, plan[1]))
+        del srcs  # the next round reads the new slabs
         kv, ki = (mesh.gather([torch.cat([o[j] for o in out]) for out in outs if out])
                   for j in range(2))
     return kv, ki
