@@ -75,7 +75,8 @@ the port's paths, the embedding paths with a seeded flagship checkpoint
   ``train_packaged_architecture`` on ``generate_alignment_training_data``'s
   120 families, two rounds from a seeded checkpoint, the loss lower at
   the end, and one more epoch split into host batch assembly and the
-  step's forward, backward and Adam from CUDA events, (d) both probes of
+  step's node embeddings, loss, backward and Adam from the CUDA events
+  of the port's spans (``utils/trace.py``), (d) both probes of
   the trained and the starting checkpoint on the 24 held-out families
   (K2 on the warp route, no K1), (e) triplet and regression through the
   CLI with ``--fit-node-stats``, (f) a run stopped in epoch 2 and resumed
@@ -98,8 +99,8 @@ the port's paths, the embedding paths with a seeded flagship checkpoint
 
 Each phase prints one JSON line with its name and seconds.  The
 ``main_path`` line also splits the warm window pass (upload, window
-build, K1, download, from CUDA events) and the CLI's host stages (CSV
-read, checkpoint load, prep, TSV write); ``kernel_timing`` gives K1's
+build, K1, download) and the CLI's host stages (CSV read, checkpoint
+load, prep, TSV write) from the port's spans of one run each; ``kernel_timing`` gives K1's
 bound at the float32-accurate tensor-core rate (3xTF32) and, beside it,
 at the FMA units' float32 rate, and times K2 on the route its wrapper
 takes (``ms``, one warp per pair) beside its CTA route (``cta_ms``, one
@@ -254,7 +255,7 @@ from ginfinity_tpu_torch.training.train import (
     triplet_loss_fn,
 )
 from ginfinity_tpu_torch.utils.device import disable_tf32
-from ginfinity_tpu_torch.utils import native
+from ginfinity_tpu_torch.utils import native, trace
 from ginfinity_tpu_torch.utils.io import read_table, write_tsv
 
 WINDOW = 120
@@ -450,90 +451,53 @@ def encoder_bound_ms(cfg, x0, flags, packed, L: int,
             1e3 * max(ops / F32_FLOPS, t_bytes))
 
 
+def program_spans(run) -> list:
+    """The port's spans (``utils/trace.py``) of one ``run()``."""
+    trace.clear()
+    with trace.recording():
+        run()
+    recs = trace.recorded()
+    trace.clear()
+    return recs
+
+
+def span_sum(recs, name: str, device: bool = False) -> float:
+    """Milliseconds of the spans ``name``: host stamps, or CUDA events."""
+    return sum(r.device_ms if device else r.ms for r in recs if r.name == name)
+
+
 def warm_split(model, structures, L: int) -> dict:
-    """The warm window pass again, stage by stage: host prep and packing on
-    the host clock; per group the upload, per chunk the window build
-    (``_window_chunk``) and K1, per group the download, each summed from
-    CUDA events.  An event span includes the device's wait for the host
-    to enqueue the stage, so the host's enqueue time of the window build
-    and of K1 is given beside it (``*_host_s``)."""
-    cfg, dev = model.config, model.device
-    t0 = time.perf_counter()
-    per, groups = _prep_corpus_groups(cfg, structures, L, True, 0.0)
-    prep_s = time.perf_counter() - t0
-    packed = model.packed_windows()
-    spans = {"upload": [], "window_build": [], "k1": [], "download": []}
-    pack_s, build_host_s, k1_host_s, n_chunks = 0.0, 0.0, 0.0, 0
-
-    def mark():
-        e = torch.cuda.Event(enable_timing=True)
-        e.record()
-        return e
-
-    for n_cap, idxs in groups.items():
-        t0 = time.perf_counter()
-        feats, pts, sidx, starts, w_cap = _pack_group(cfg, per, n_cap, idxs)
-        n_real = sum(per[i][4].size for i in idxs)
-        pack_s += time.perf_counter() - t0
-        e0 = mark()
-        feats_d = torch.from_numpy(feats).to(dev)
-        pts_d = torch.from_numpy(pts).to(dev, torch.int64)
-        si = torch.from_numpy(sidx[:n_real]).to(dev, torch.int64)
-        st = torch.from_numpy(starts[:n_real]).to(dev, torch.int64)
-        spans["upload"].append((e0, mark()))
-        views = (feats_d.unfold(1, L, 1), pts_d.unfold(1, L, 1))
-        chunk = _chunk_for(w_cap)
-        out = torch.empty((n_real, cfg.output_dim), dtype=torch.float32, device=dev)
-        for c0 in range(0, n_real, chunk):
-            t0 = time.perf_counter()
-            e0 = mark()
-            x0, flags = _window_chunk(cfg, model.params, feats_d, pts_d, si[c0:c0 + chunk],
-                                      st[c0:c0 + chunk], L, True, views)
-            e1 = mark()
-            t1 = time.perf_counter()
-            out[c0:c0 + chunk] = forward_windows(cfg, model.params, model.state, x0, *flags, L,
-                                                 packed=packed)
-            spans["window_build"].append((e0, e1))
-            spans["k1"].append((e1, mark()))
-            build_host_s += t1 - t0
-            k1_host_s += time.perf_counter() - t1
-            n_chunks += 1
-        e0 = mark()
-        out.cpu()
-        spans["download"].append((e0, mark()))
-    torch.cuda.synchronize()
-    res = {f"{k}_ms": sum(a.elapsed_time(b) for a, b in v) for k, v in spans.items()}
-    res.update(host_prep_s=prep_s, host_pack_s=pack_s, window_build_host_s=build_host_s,
-               k1_host_s=k1_host_s, chunks=n_chunks, groups=len(groups))
-    return res
+    """The warm window pass, stage by stage, from the program's spans:
+    host prep and packing, per group the upload and the download (the
+    wait, then the copy), on the host clock; per chunk the window build
+    (``_window_chunk``) and K1 from CUDA events.  An event span includes
+    the device's wait for the host to enqueue the stage, so the host's
+    enqueue time of the window build and of K1 is given beside it
+    (``*_host_s``)."""
+    recs = program_spans(lambda: embed_corpus_windows(model, structures, L, True))
+    (root,) = [r for r in recs if r.name == "windows.embed"]
+    return {"upload_ms": span_sum(recs, "windows.upload"),
+            "window_build_ms": span_sum(recs, "windows.build", device=True),
+            "k1_ms": span_sum(recs, "windows.encoder", device=True),
+            "download_ms": span_sum(recs, "windows.download"),
+            "host_prep_s": span_sum(recs, "windows.prep") / 1e3,
+            "host_pack_s": span_sum(recs, "windows.pack") / 1e3,
+            "window_build_host_s": span_sum(recs, "windows.build") / 1e3,
+            "k1_host_s": span_sum(recs, "windows.encoder") / 1e3,
+            "call_s": root.ms / 1e3, **root.counts}
 
 
-def cli_host_split(src: str, ckpt: str, out_tsv: str, structures, L: int, dev) -> dict:
-    """The window CLI's host stages again, each on the host clock: CSV read,
-    checkpoint load (and the model's upload), prep (pair tables, window
-    features, grouping) and the TSV write of the embeddings (text
-    formatting included)."""
-    t0 = time.perf_counter()
-    table = read_table(src)
-    t1 = time.perf_counter()
-    cfg, params, state, _ = load_checkpoint(ckpt)
-    model = GINModel(cfg, params, state).to(dev)
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    _prep_corpus_groups(cfg, structures, L, True, 0.0)
-    t3 = time.perf_counter()
-    res = embed_corpus_windows(model, structures, L, True)
-    ids = table.column("rna_id")
-    t4 = time.perf_counter()
-    rows = [{"window_id": f"{rid}_{start}", "rna_id": rid, "window_start": start,
-             "window_end": start + L - 1, "seq_len": len(st),
-             "embedding_vector": embed.format_embedding(vec)}
-            for rid, st, (starts, embs) in zip(ids, structures, res)
-            for start, vec in zip(starts.tolist(), embs)]
-    write_tsv(out_tsv, list(rows[0]), rows)
-    t5 = time.perf_counter()
-    return {"csv_read_s": t1 - t0, "checkpoint_load_s": t2 - t1, "prep_s": t3 - t2,
-            "tsv_write_s": t5 - t4}
+def cli_host_split(src: str, ckpt: str, out_tsv: str, L: int, dev) -> dict:
+    """The window CLI's host stages, from the program's spans of one run:
+    CSV read, checkpoint load (and the model's upload), prep (pair
+    tables, window features, grouping) and the TSV write of the
+    embeddings (text formatting included)."""
+    recs = program_spans(lambda: quiet_main(embed.main, [
+        "--input", src, "--id-column", "rna_id", "--output", out_tsv, "--model-path", ckpt,
+        "--window-size", str(L), "--keep-paired-neighbors", "--quiet", "--device", str(dev)]))
+    return {k: span_sum(recs, name) / 1e3 for k, name in (
+        ("csv_read_s", "embed.read"), ("checkpoint_load_s", "embed.load"),
+        ("prep_s", "windows.prep"), ("tsv_write_s", "embed.write"))}
 
 
 def dp_tensors(mats, dev, L1=None, L2=None):
@@ -1048,7 +1012,7 @@ def variants_path(tmp: str, dev) -> dict:
             for i, (starts, embs) in enumerate(res) for st, e in zip(starts.tolist(), embs)))
         v["windows_checked"] = sum(len(st) for st, _ in res)
         v["window_cli_host_split"] = cli_host_split(win_csv, ckpt, os.path.join(tmp, "w.tsv"),
-                                                    structs, WINDOW, dev)
+                                                    WINDOW, dev)
         if name == "forgi":
             v.update(forgi_extras(tmp, ckpt, cfg, rnas, win_csv, fused, dev))
         if dp_wavefront.launches:
@@ -2180,8 +2144,9 @@ def repeat_step(cfg, loss_fn, params, state, batch, dev, mesh=None) -> dict:
 def epoch_split(cfg, params, state, ds, dev, loss_cfg) -> dict:
     """One training epoch of the alignment dataset as the train CLI runs
     it (batch size 32, 16 unaligned a graph, 5,000 negatives): host batch
-    assembly and upload on the host's clock, each step's forward, backward
-    and Adam from CUDA events, and the epoch's wall time (synchronised)."""
+    assembly and upload on the host's clock, each step's node embeddings,
+    loss, backward and Adam from the CUDA events of the program's spans,
+    and the epoch's wall time (synchronised)."""
     ts = TrainState.create(tree_map(lambda t: t.to(dev), params),
                            tree_map(lambda t: t.to(dev), state), 1e-4)
     step = make_train_step(cfg, alignment_loss_fn(loss_cfg))
@@ -2189,36 +2154,38 @@ def epoch_split(cfg, params, state, ds, dev, loss_cfg) -> dict:
     batches = train_data.iter_alignment_batches(ds, 32, 16, np.random.default_rng(SEED),
                                                 max_negatives=5000)
     host_s = upload_s = 0.0
-    events, graphs, nodes = [], 0, 0
+    subsets, graphs, nodes = [], 0, 0
     torch.cuda.synchronize()
+    trace.clear()
     t0 = time.perf_counter()
-    while True:
-        t = time.perf_counter()
-        b = next(batches, None)
-        host_s += time.perf_counter() - t
-        if b is None:
-            break
-        t = time.perf_counter()
-        bd = b.to(dev)
-        upload_s += time.perf_counter() - t
-        graphs += int((b.graphs.n_nodes > 0).sum())
-        nodes += int(b.graphs.node_mask.sum())
-        ev = {k: torch.cuda.Event(enable_timing=True) for k in ("start", "forward",
-                                                                "backward", "adam")}
-        ev["start"].record()
-        step(ts, bd, gen, marks=lambda name, ev=ev: ev[name].record())
-        events.append((ev, int(b.valid.sum()), b.valid.shape[0]))
+    with trace.recording():
+        while True:
+            t = time.perf_counter()
+            b = next(batches, None)
+            host_s += time.perf_counter() - t
+            if b is None:
+                break
+            t = time.perf_counter()
+            bd = b.to(dev)
+            upload_s += time.perf_counter() - t
+            graphs += int((b.graphs.n_nodes > 0).sum())
+            nodes += int(b.graphs.node_mask.sum())
+            step(ts, bd, gen)
+            subsets.append((int(b.valid.sum()), b.valid.shape[0]))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    ms = {k: sum(e[a].elapsed_time(e[k]) for e, _, _ in events)
-          for a, k in (("start", "forward"), ("forward", "backward"), ("backward", "adam"))}
-    return {"steps": len(events), "graphs": graphs, "nodes": nodes,
-            "subset_nodes": [m for _, m, _ in events], "subset_capacity": [c for *_, c in events],
-            "epoch_seconds": wall, "steps_per_s": len(events) / wall,
+    recs = trace.recorded()
+    trace.clear()
+    ms = {k: span_sum(recs, f"train.{k}", device=True)
+          for k in ("encode", "loss", "backward", "adam")}
+    return {"steps": len(subsets), "graphs": graphs, "nodes": nodes,
+            "subset_nodes": [m for m, _ in subsets], "subset_capacity": [c for _, c in subsets],
+            "epoch_seconds": wall, "steps_per_s": len(subsets) / wall,
             "graphs_per_s": graphs / wall, "host_assembly_seconds": host_s,
-            "upload_seconds": upload_s, "device_forward_ms": ms["forward"],
+            "upload_seconds": upload_s, "device_encode_ms": ms["encode"],
+            "device_loss_ms": ms["loss"], "device_forward_ms": ms["encode"] + ms["loss"],
             "device_backward_ms": ms["backward"], "device_adam_ms": ms["adam"],
-            "device_step_ms": sum(ms.values())}
+            "device_step_ms": span_sum(recs, "train.step", device=True)}
 
 
 def log_series(log_path: str, key: str) -> list:
@@ -3046,7 +3013,7 @@ def run_phases(work: str) -> int:
                    warm_embed_windows_per_s=n_windows / warm_s,
                    warm_split=warm_split(model, structures, WINDOW),
                    cli_host_split=cli_host_split(src, ckpt, os.path.join(tmp, "split.tsv"),
-                                                 structures, WINDOW, dev))
+                                                 WINDOW, dev))
     main_params, main_state, main_emb = params, state, emb
 
     with kept_dir(work, "align_path") as tmp, phase("align_path", {"card": card}) as rec:

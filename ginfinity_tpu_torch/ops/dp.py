@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ginfinity_tpu_torch.parallel.mesh import DataMesh
+from ginfinity_tpu_torch.utils import trace
 from ginfinity_tpu_torch.utils.device import resolve_device
 
 NEG = -1e9  # the reference's minus-infinity sentinel
@@ -239,11 +240,14 @@ def paths_from_codes(codes: np.ndarray, l1: np.ndarray, l2: np.ndarray,
     L1 = codes.shape[2] - 1
     out = []
     for k in range(codes.shape[0]):
-        TH, TE, TF = _codes_dense(codes[k], L1)
-        if mode == "global":
-            out.append(_traceback_global(TH, TE, TF, int(l1[k]), int(l2[k])))
-        else:
-            out.append(_traceback_local(TH, int(l1[k]), int(l2[k]), int(bi[k]), int(bj[k])))
+        with trace.span("dp.unshear"):
+            TH, TE, TF = _codes_dense(codes[k], L1)
+        with trace.span("dp.traceback"):
+            if mode == "global":
+                out.append(_traceback_global(TH, TE, TF, int(l1[k]), int(l2[k])))
+            else:
+                out.append(_traceback_local(TH, int(l1[k]), int(l2[k]), int(bi[k]),
+                                            int(bj[k])))
     return out
 
 
@@ -309,17 +313,20 @@ def affine_align_batch(score_mats: list[np.ndarray], gap_open: float, gap_extend
     mesh = mesh or DataMesh([resolve_device(device)])
     if not score_mats:
         return []
-    scores, l1, l2 = pad_batch(score_mats)
-    B, L1, L2 = scores.shape
-    pad = mesh.padded(B) - B
-    shards = zip(*(mesh.split(torch.from_numpy(x)) for x in (
-        np.concatenate([scores, np.zeros((pad, L1, L2), np.float32)]),
-        np.concatenate([l1, np.ones(pad, np.int32)]),
-        np.concatenate([l2, np.ones(pad, np.int32)]))))
-    parts = [_wavefront_on(*shard, gap_open, gap_extend, mode) for shard in shards]
-    best, bi, bj, codes = (mesh.gather([p[k] for p in parts], B) for k in range(4))
-    best, bi, bj = best.cpu().numpy(), bi.cpu().numpy(), bj.cpu().numpy()
-    paths = paths_from_codes(codes.cpu().numpy(), l1, l2, bi, bj, mode)
+    with trace.span("dp.align_batch") as sp:
+        scores, l1, l2 = pad_batch(score_mats)
+        B, L1, L2 = scores.shape
+        sp.add(pairs=B, cells_real=int(((l1.astype(np.int64) + 1) * (l2 + 1)).sum()),
+               cells_padded=B * (L1 + 1) * (L2 + 1))
+        pad = mesh.padded(B) - B
+        shards = zip(*(mesh.split(torch.from_numpy(x)) for x in (
+            np.concatenate([scores, np.zeros((pad, L1, L2), np.float32)]),
+            np.concatenate([l1, np.ones(pad, np.int32)]),
+            np.concatenate([l2, np.ones(pad, np.int32)]))))
+        parts = [_wavefront_on(*shard, gap_open, gap_extend, mode) for shard in shards]
+        best, bi, bj, codes = (mesh.gather([p[k] for p in parts], B) for k in range(4))
+        best, bi, bj = best.cpu().numpy(), bi.cpu().numpy(), bj.cpu().numpy()
+        paths = paths_from_codes(codes.cpu().numpy(), l1, l2, bi, bj, mode)
     return [(float(best[k]), paths[k]) for k in range(B)]
 
 

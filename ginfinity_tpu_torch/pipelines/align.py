@@ -19,6 +19,7 @@ import numpy as np
 
 from ginfinity_tpu_torch.ops.dp import affine_align
 from ginfinity_tpu_torch.pipelines.node_embed import parse_matrix
+from ginfinity_tpu_torch.utils import trace
 from ginfinity_tpu_torch.utils.device import resolve_device
 from ginfinity_tpu_torch.utils.io import read_table_auto
 
@@ -26,9 +27,10 @@ from ginfinity_tpu_torch.utils.io import read_table_auto
 def cosine_similarity_matrix(A: np.ndarray, B: np.ndarray, eps: float = 1e-8) -> np.ndarray:
     if A.shape[1] != B.shape[1]:
         raise ValueError(f"Embedding dims mismatch: {A.shape[1]} vs {B.shape[1]}")
-    A_n = A / (np.linalg.norm(A, axis=1, keepdims=True) + eps)
-    B_n = B / (np.linalg.norm(B, axis=1, keepdims=True) + eps)
-    return A_n @ B_n.T
+    with trace.span("align.similarity"):
+        A_n = A / (np.linalg.norm(A, axis=1, keepdims=True) + eps)
+        B_n = B / (np.linalg.norm(B, axis=1, keepdims=True) + eps)
+        return A_n @ B_n.T
 
 
 def alignment_to_tsv(path, score_matrix, s1=None, s2=None) -> str:

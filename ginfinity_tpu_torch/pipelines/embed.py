@@ -26,6 +26,7 @@ import torch
 
 from ginfinity_tpu_torch.graphs.dotbracket import pair_table
 from ginfinity_tpu_torch.parallel.mesh import data_parallel_mesh
+from ginfinity_tpu_torch.utils import trace
 from ginfinity_tpu_torch.utils.device import resolve_device
 from ginfinity_tpu_torch.utils.io import (
     Table,
@@ -149,15 +150,16 @@ def generate_window_embeddings(
     from ginfinity_tpu_torch.pipelines.fast_windows import embed_corpus_windows
 
     dev = resolve_device(device)
-    cfg, params, state, _ = load_checkpoint(model_path)
-    if precision != "highest":
-        cfg = cfg.with_precision(precision)
-        if not quiet:
-            print("[generate_window_embeddings] bf16 speed mode: per-window "
-                  "agreement with f32 has a tail; --bf16-check N measures it on "
-                  "this corpus. Use the default f32 when exact retrieval parity "
-                  "matters.")
-    model = GINModel(cfg, params, state).to(dev)
+    with trace.span("embed.load"):
+        cfg, params, state, _ = load_checkpoint(model_path)
+        if precision != "highest":
+            cfg = cfg.with_precision(precision)
+            if not quiet:
+                print("[generate_window_embeddings] bf16 speed mode: per-window "
+                      "agreement with f32 has a tail; --bf16-check N measures it on "
+                      "this corpus. Use the default f32 when exact retrieval parity "
+                      "matters.")
+        model = GINModel(cfg, params, state).to(dev)
 
     structures, ids = [], []
     for rid, s in zip(input_table.column(id_column), input_table.column(structure_column)):
@@ -175,32 +177,33 @@ def generate_window_embeddings(
         _report_bf16_tail(cfg, params, state, structures, ids, results, window_size,
                           keep_paired_neighbors, mask_threshold, bf16_check, log_path,
                           quiet, wire=wire, device=dev)
-    base_by_id: dict = {}
-    if keep_cols:
-        for r in input_table.rows:
-            base_by_id.setdefault(r[id_column], r)
-    rows = []
-    for rid, struct, (starts, embs) in zip(ids, structures, results):
-        base = base_by_id.get(rid)
-        for start, vec in zip(starts.tolist(), embs):
-            row = {
-                "window_id": f"{rid}_{start}",
-                id_column: rid,
-                "window_start": start,
-                "window_end": start + window_size - 1,
-                "seq_len": len(struct),
-                "embedding_vector": format_embedding(vec),
-            }
-            if base is not None:
-                row.update({c: base[c] for c in keep_cols if c in base})
-            rows.append(row)
-    leading = ["window_id", id_column, "window_start", "window_end", "seq_len",
-               "embedding_vector"]
-    columns = list(leading)
-    if rows:
-        for r in rows:
-            columns += [c for c in r if c not in columns]
-    write_tsv(output_path, columns, rows)
+    with trace.span("embed.write"):
+        base_by_id: dict = {}
+        if keep_cols:
+            for r in input_table.rows:
+                base_by_id.setdefault(r[id_column], r)
+        rows = []
+        for rid, struct, (starts, embs) in zip(ids, structures, results):
+            base = base_by_id.get(rid)
+            for start, vec in zip(starts.tolist(), embs):
+                row = {
+                    "window_id": f"{rid}_{start}",
+                    id_column: rid,
+                    "window_start": start,
+                    "window_end": start + window_size - 1,
+                    "seq_len": len(struct),
+                    "embedding_vector": format_embedding(vec),
+                }
+                if base is not None:
+                    row.update({c: base[c] for c in keep_cols if c in base})
+                rows.append(row)
+        leading = ["window_id", id_column, "window_start", "window_end", "seq_len",
+                   "embedding_vector"]
+        columns = list(leading)
+        if rows:
+            for r in rows:
+                columns += [c for c in r if c not in columns]
+        write_tsv(output_path, columns, rows)
     log_information(log_path, {
         "num_window_embeddings": len(rows),
         "window_size": window_size,
@@ -412,7 +415,8 @@ def _main_inner(args):
         _embed_precomputed(args, device, mesh)
         return
 
-    table, log_path, propagate = setup_and_read_input(args, need_model=True)
+    with trace.span("embed.read"):
+        table, log_path, propagate = setup_and_read_input(args, need_model=True)
     if args.window_size is None:
         generate_embeddings(
             input_table=table,

@@ -50,6 +50,7 @@ from ginfinity_tpu_torch.ops.windows_encoder import (
 )
 from ginfinity_tpu_torch.pipelines.windows import window_starts_mask
 from ginfinity_tpu_torch.parallel.mesh import DataMesh
+from ginfinity_tpu_torch.utils import trace
 from ginfinity_tpu_torch.utils.device import disable_tf32, resolve_device
 
 
@@ -135,13 +136,17 @@ def _forward_windows_aligned(config: GINConfig, params: dict, state: dict,
     and ``use_kernel=False``, take the plain torch encoder as the JAX
     package's XLA path computes it (partner rows gathered exactly, also
     at bf16)."""
-    x0, flags = _window_chunk(config, params, feats_all, pts_all, si, st, L,
-                              keep_paired_neighbors, views)
+    dev = feats_all.device
+    with trace.span("windows.build", device=dev):
+        x0, flags = _window_chunk(config, params, feats_all, pts_all, si, st, L,
+                                  keep_paired_neighbors, views)
     if use_kernel is None:
         use_kernel = windows_kernel_ok(config)
-    if use_kernel:
-        return forward_windows(config, params, state, x0, *flags, L, packed=packed)
-    return forward_windows_reference(config, params, state, x0, *flags, L, exact_gather=True)
+    with trace.span("windows.encoder", device=dev):
+        if use_kernel:
+            return forward_windows(config, params, state, x0, *flags, L, packed=packed)
+        return forward_windows_reference(config, params, state, x0, *flags, L,
+                                         exact_gather=True)
 
 
 def _window_slot_counts(pt: np.ndarray, L: int, starts: np.ndarray,
@@ -326,7 +331,9 @@ def _run_chunks(mesh, replicas, host, bounds, runner) -> torch.Tensor:
     ``runner(model, arrays)`` returns the function of ``(c0, c1)`` that
     embeds one chunk."""
     blocks = mesh.blocks(len(bounds))
-    arrays = mesh.replicate(lambda d: _upload(host, d))
+    trace.current().add(chunks=len(bounds))
+    with trace.span("windows.upload"):
+        arrays = mesh.replicate(lambda d: _upload(host, d))
     runs = [runner(m, a) if len(b) else None for m, a, b in zip(replicas, arrays, blocks)]
     outs: list[list] = [[] for _ in blocks]
     for step in range(len(blocks[0])):
@@ -353,7 +360,8 @@ def _embed_group(model: GINModel, per, n_cap: int, idxs, L: int,
     device alone).  Chunks run over the real descriptors only; the
     padding of ``w_cap`` sets the chunk size."""
     cfg = model.config
-    host = _group_host(cfg, per, n_cap, idxs)
+    with trace.span("windows.pack"):
+        host = _group_host(cfg, per, n_cap, idxs)
     n_real, chunk = host[2].shape[0], _chunk_for(host[4])
     kernel = use_kernel if use_kernel is not None else windows_kernel_ok(cfg)
 
@@ -376,10 +384,11 @@ def _embed_group_compact(model: GINModel, per, n_cap: int, idxs, L: int,
     descriptor order, chunks of at most about ``_COMPACT_CHUNK_NODES``
     real nodes (sharded as :func:`_embed_group` shards them)."""
     cfg = model.config
-    host = _group_host(cfg, per, n_cap, idxs)
-    nodes = np.concatenate([
-        L + _window_slot_counts(per[i][2], L, per[i][4], keep_paired_neighbors)[1]
-        for i in idxs])
+    with trace.span("windows.pack"):
+        host = _group_host(cfg, per, n_cap, idxs)
+        nodes = np.concatenate([
+            L + _window_slot_counts(per[i][2], L, per[i][4], keep_paired_neighbors)[1]
+            for i in idxs])
     n_real = nodes.size
     cuts = np.flatnonzero(np.diff(np.cumsum(nodes) // _COMPACT_CHUNK_NODES)) + 1
     bounds = np.concatenate([[0], cuts, [n_real]]).tolist()
@@ -387,8 +396,15 @@ def _embed_group_compact(model: GINModel, per, n_cap: int, idxs, L: int,
     def runner(m: GINModel, arrays):
         feats_d, pts_d, si, st = arrays
         params, state = m.params, m.state
-        return lambda c0, c1: forward_once(cfg, params, state, _window_graphs(
-            cfg, feats_d, pts_d, si[c0:c1], st[c0:c1], L, keep_paired_neighbors))
+
+        def run(c0, c1):
+            with trace.span("windows.build", device=feats_d.device):
+                graphs = _window_graphs(cfg, feats_d, pts_d, si[c0:c1], st[c0:c1], L,
+                                        keep_paired_neighbors)
+            with trace.span("windows.encoder", device=feats_d.device):
+                return forward_once(cfg, params, state, graphs)
+
+        return run
 
     return _run_chunks(*(on or _replicas(model, None)), host,
                        list(zip(bounds[:-1], bounds[1:])), runner)
@@ -420,21 +436,26 @@ def embed_corpus_windows(model: GINModel, structures, L: int, keep_paired_neighb
         model.to(mesh.first)
     on = _replicas(model, mesh)
     empty = (np.zeros(0, np.int64), np.zeros((0, cfg.output_dim), np.float32))
-    per, groups = _prep_corpus_groups(
-        cfg, structures, L, keep_paired_neighbors, mask_threshold, max_programs
-    )
-    results = [empty] * len(structures)
-    embed_group = _embed_group if _dense_forward_ok(cfg) else _embed_group_compact
-    for n_cap, idxs in groups.items():
-        emb = embed_group(model, per, n_cap, idxs, L, keep_paired_neighbors, on=on)
-        if wire == "f16":
-            emb = emb.to(torch.float16)
-        emb_np = emb.cpu().numpy().astype(np.float32, copy=False)
-        off = 0
-        for i in idxs:
-            starts = per[i][4]
-            results[i] = (starts.astype(np.int64), emb_np[off:off + starts.size])
-            off += starts.size
+    with trace.span("windows.embed") as sp:
+        with trace.span("windows.prep"):
+            per, groups = _prep_corpus_groups(
+                cfg, structures, L, keep_paired_neighbors, mask_threshold, max_programs
+            )
+        sp.add(groups=len(groups))
+        results = [empty] * len(structures)
+        embed_group = _embed_group if _dense_forward_ok(cfg) else _embed_group_compact
+        for n_cap, idxs in groups.items():
+            emb = embed_group(model, per, n_cap, idxs, L, keep_paired_neighbors, on=on)
+            if wire == "f16":
+                emb = emb.to(torch.float16)
+            with trace.span("windows.download"):
+                emb_np = emb.cpu().numpy().astype(np.float32, copy=False)
+            sp.add(windows=emb_np.shape[0])
+            off = 0
+            for i in idxs:
+                starts = per[i][4]
+                results[i] = (starts.astype(np.int64), emb_np[off:off + starts.size])
+                off += starts.size
     return results
 
 

@@ -31,6 +31,7 @@ from ginfinity_tpu_torch.graphs.batching import GraphBatch, _round_capacity, bat
 from ginfinity_tpu_torch.graphs.build import GraphArrays, build_graph_arrays
 from ginfinity_tpu_torch.graphs.dotbracket import pair_table
 from ginfinity_tpu_torch.training.train import AlignmentBatch, PairBatch, TripletBatch
+from ginfinity_tpu_torch.utils import trace
 from ginfinity_tpu_torch.utils.io import Table
 
 CATEGORY_TO_ID = {
@@ -498,111 +499,112 @@ def assemble_alignment_batch(
     debug_log=None,
 ) -> AlignmentBatch | None:
     """Pack alignment groups into one AlignmentBatch (the reference's
-    label scheme, on the host, fixed-shape).
+    label scheme, on the host, fixed-shape; traced as ``train.assembly``).
 
     ``max_negatives``/``hard_negative_fraction`` apply the reference
     loss's negative subsampling at assembly time; ``max_negatives=None``
     keeps the full assembled set."""
-    structures: list[AlignedStructure] = []
-    group_of: list[Any] = []
-    for aid, sts in groups:
-        structures.extend(sts)
-        group_of.extend([aid] * len(sts))
-    if len(structures) < 2:
-        return None
-
-    graphs = [s.graph for s in structures]
-    g_cap = graph_capacity or _round_capacity(len(graphs))
-    gb = _pack_group(graphs, g_cap, caps)
-
-    # node offsets in the packed batch (the packing order of batch_graphs)
-    offsets = np.cumsum([0] + [g.n_nodes for g in graphs[:-1]])
-
-    alignment_offsets: dict[Any, int] = {}
-    node_idx, labels, graph_ids, categories = [], [], [], []
-    for graph_idx, st in enumerate(structures):
-        aid = group_of[graph_idx]
-        if aid not in alignment_offsets:
-            alignment_offsets[aid] = len(alignment_offsets)
-        a_off = alignment_offsets[aid] * LABEL_STRIDE
-
-        for align_pos, struct_pos in st.mapping.items():
-            node_idx.append(offsets[graph_idx] + struct_pos)
-            labels.append(a_off + int(align_pos))
-            graph_ids.append(graph_idx)
-            categories.append(st.categories.get(struct_pos, 2))
-
-        if max_unaligned_per_graph > 0 and st.unaligned:
-            k = min(max_unaligned_per_graph, len(st.unaligned))
-            if rng is not None and k < len(st.unaligned):
-                sel = list(rng.choice(len(st.unaligned), size=k, replace=False))
-                selected = [st.unaligned[i] for i in sel]
-            else:
-                selected = st.unaligned[:k]
-            base_label = -((graph_idx + 1) * LABEL_STRIDE)
-            for off, sp in enumerate(selected):
-                node_idx.append(offsets[graph_idx] + sp)
-                labels.append(base_label - off)
-                graph_ids.append(graph_idx)
-                categories.append(st.categories.get(sp, 5))
-
-    if not node_idx:
-        return None
-
-    if max_negatives is not None:
-        keep = subsample_negatives(
-            np.asarray(labels, np.int64),
-            np.asarray(graph_ids, np.int32),
-            np.asarray(categories, np.int32),
-            max_negatives,
-            hard_negative_fraction,
-            rng,
-        )
-        if debug_log is not None:
-            debug_log(
-                "negative_subsampling",
-                {
-                    "assembled_nodes": len(node_idx),
-                    "kept_nodes": int(keep.size),
-                    "max_negatives": int(max_negatives),
-                    "hard_negative_fraction": float(hard_negative_fraction),
-                },
-            )
-        if keep.size == 0:
+    with trace.span("train.assembly"):
+        structures: list[AlignedStructure] = []
+        group_of: list[Any] = []
+        for aid, sts in groups:
+            structures.extend(sts)
+            group_of.extend([aid] * len(sts))
+        if len(structures) < 2:
             return None
-        node_idx = [node_idx[i] for i in keep]
-        labels = [labels[i] for i in keep]
-        graph_ids = [graph_ids[i] for i in keep]
-        categories = [categories[i] for i in keep]
 
-    m = len(node_idx)
-    m_cap = subset_capacity or _round_capacity(m)
-    if m > m_cap:
-        # truncate deterministically (does not happen with ladder caps)
-        node_idx, labels, graph_ids, categories = (
-            x[:m_cap] for x in (node_idx, labels, graph_ids, categories)
+        graphs = [s.graph for s in structures]
+        g_cap = graph_capacity or _round_capacity(len(graphs))
+        gb = _pack_group(graphs, g_cap, caps)
+
+        # node offsets in the packed batch (the packing order of batch_graphs)
+        offsets = np.cumsum([0] + [g.n_nodes for g in graphs[:-1]])
+
+        alignment_offsets: dict[Any, int] = {}
+        node_idx, labels, graph_ids, categories = [], [], [], []
+        for graph_idx, st in enumerate(structures):
+            aid = group_of[graph_idx]
+            if aid not in alignment_offsets:
+                alignment_offsets[aid] = len(alignment_offsets)
+            a_off = alignment_offsets[aid] * LABEL_STRIDE
+
+            for align_pos, struct_pos in st.mapping.items():
+                node_idx.append(offsets[graph_idx] + struct_pos)
+                labels.append(a_off + int(align_pos))
+                graph_ids.append(graph_idx)
+                categories.append(st.categories.get(struct_pos, 2))
+
+            if max_unaligned_per_graph > 0 and st.unaligned:
+                k = min(max_unaligned_per_graph, len(st.unaligned))
+                if rng is not None and k < len(st.unaligned):
+                    sel = list(rng.choice(len(st.unaligned), size=k, replace=False))
+                    selected = [st.unaligned[i] for i in sel]
+                else:
+                    selected = st.unaligned[:k]
+                base_label = -((graph_idx + 1) * LABEL_STRIDE)
+                for off, sp in enumerate(selected):
+                    node_idx.append(offsets[graph_idx] + sp)
+                    labels.append(base_label - off)
+                    graph_ids.append(graph_idx)
+                    categories.append(st.categories.get(sp, 5))
+
+        if not node_idx:
+            return None
+
+        if max_negatives is not None:
+            keep = subsample_negatives(
+                np.asarray(labels, np.int64),
+                np.asarray(graph_ids, np.int32),
+                np.asarray(categories, np.int32),
+                max_negatives,
+                hard_negative_fraction,
+                rng,
+            )
+            if debug_log is not None:
+                debug_log(
+                    "negative_subsampling",
+                    {
+                        "assembled_nodes": len(node_idx),
+                        "kept_nodes": int(keep.size),
+                        "max_negatives": int(max_negatives),
+                        "hard_negative_fraction": float(hard_negative_fraction),
+                    },
+                )
+            if keep.size == 0:
+                return None
+            node_idx = [node_idx[i] for i in keep]
+            labels = [labels[i] for i in keep]
+            graph_ids = [graph_ids[i] for i in keep]
+            categories = [categories[i] for i in keep]
+
+        m = len(node_idx)
+        m_cap = subset_capacity or _round_capacity(m)
+        if m > m_cap:
+            # truncate deterministically (does not happen with ladder caps)
+            node_idx, labels, graph_ids, categories = (
+                x[:m_cap] for x in (node_idx, labels, graph_ids, categories)
+            )
+            m = m_cap
+
+        def pad(arr, fill, dtype):
+            out = np.full(m_cap, fill, dtype)
+            out[:m] = arr
+            return torch.from_numpy(out)
+
+        # padding labels: unique values far outside the real range, so they
+        # never form a same-label pair (and valid=0 masks them out anyway)
+        lab = np.full(m_cap, 0, np.int64)
+        lab[:m] = labels
+        lab[m:] = -2 * 10**9 - np.arange(m_cap - m, dtype=np.int64)
+
+        return AlignmentBatch(
+            graphs=gb,
+            node_idx=pad(node_idx, 0, np.int32),
+            labels=torch.from_numpy(lab),
+            graph_ids=pad(graph_ids, -1, np.int32),
+            categories=pad(categories, 5, np.int32),
+            valid=pad(np.ones(m, np.float32), 0.0, np.float32),
         )
-        m = m_cap
-
-    def pad(arr, fill, dtype):
-        out = np.full(m_cap, fill, dtype)
-        out[:m] = arr
-        return torch.from_numpy(out)
-
-    # padding labels: unique values far outside the real range, so they
-    # never form a same-label pair (and valid=0 masks them out anyway)
-    lab = np.full(m_cap, 0, np.int64)
-    lab[:m] = labels
-    lab[m:] = -2 * 10**9 - np.arange(m_cap - m, dtype=np.int64)
-
-    return AlignmentBatch(
-        graphs=gb,
-        node_idx=pad(node_idx, 0, np.int32),
-        labels=torch.from_numpy(lab),
-        graph_ids=pad(graph_ids, -1, np.int32),
-        categories=pad(categories, 5, np.int32),
-        valid=pad(np.ones(m, np.float32), 0.0, np.float32),
-    )
 
 
 def iter_alignment_batches(

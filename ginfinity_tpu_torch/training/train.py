@@ -46,6 +46,7 @@ from ginfinity_tpu_torch.models.gine import (
     get_node_embeddings_train,
 )
 from ginfinity_tpu_torch.training.losses import AlignmentLossConfig, alignment_contrastive_loss
+from ginfinity_tpu_torch.utils import trace
 
 ADAM_BETAS = (0.9, 0.999)  # optax.adam's b1, b2
 ADAM_EPS = 1e-8
@@ -177,13 +178,16 @@ def alignment_loss_fn(loss_cfg: AlignmentLossConfig = AlignmentLossConfig()):
     def fn(cfg: GINConfig, params, mstate, batch: AlignmentBatch, generator):
         # node embeddings with the post-hoc norm applied, as the reference's
         # alignment batch loss takes them
-        if generator is None:
-            x, s1 = get_node_embeddings(cfg, params, mstate, batch.graphs), mstate
-        else:
-            x, s1 = get_node_embeddings_train(cfg, params, mstate, batch.graphs, generator)
-        sub = _gather(x, batch.node_idx)
-        loss = alignment_contrastive_loss(sub, batch.labels, batch.graph_ids,
-                                          batch.categories, batch.valid, loss_cfg)
+        dev = batch.node_idx.device
+        with trace.span("train.encode", device=dev):
+            if generator is None:
+                x, s1 = get_node_embeddings(cfg, params, mstate, batch.graphs), mstate
+            else:
+                x, s1 = get_node_embeddings_train(cfg, params, mstate, batch.graphs, generator)
+        with trace.span("train.loss", device=dev):
+            sub = _gather(x, batch.node_idx)
+            loss = alignment_contrastive_loss(sub, batch.labels, batch.graph_ids,
+                                              batch.categories, batch.valid, loss_cfg)
         return loss, s1
 
     return fn
@@ -250,11 +254,12 @@ def _mean_tree(mesh, trees: list):
 
 
 def make_train_step(model_config: GINConfig, loss_fn: Callable, mesh=None):
-    """``step(ts, batch, generator, marks=None) -> (ts, loss)``: forward
-    (train mode), loss, backward and one Adam step, in place on ``ts``;
+    """``step(ts, batch, generator) -> (ts, loss)``: forward (train
+    mode), loss, backward and one Adam step, in place on ``ts``;
     ``batch`` on the state's device, ``loss`` a detached 0-d tensor.
-    ``marks``, when given, is called with ``"forward"``, ``"backward"``
-    and ``"adam"`` as each stage is enqueued (the smoke's CUDA events).
+    Traced as ``train.step`` around ``train.backward`` and
+    ``train.adam`` (the alignment loss adds ``train.encode`` and
+    ``train.loss``), each with device events.
 
     With ``mesh``: the same signature, but ``batch`` is a stack (leading
     axis ``mesh.size``, on any device) and the state lies on the mesh's
@@ -262,47 +267,44 @@ def make_train_step(model_config: GINConfig, loss_fn: Callable, mesh=None):
     if mesh is not None:
         return _make_sharded_train_step(model_config, loss_fn, mesh)
 
-    def step(ts: TrainState, batch, generator: torch.Generator, marks=None):
-        ts.optimizer.zero_grad(set_to_none=True)
-        loss, new_state = loss_fn(model_config, ts.params, ts.model_state, batch, generator)
-        if marks is not None:
-            marks("forward")
-        loss.backward()
-        if marks is not None:
-            marks("backward")
-        ts.optimizer.step()
-        if marks is not None:
-            marks("adam")
-        ts.model_state = tree_map(torch.Tensor.detach, new_state)
-        ts.step += 1
-        return ts, loss.detach()
+    def step(ts: TrainState, batch, generator: torch.Generator):
+        dev = ts.optimizer.param_groups[0]["params"][0].device
+        with trace.span("train.step", device=dev):
+            ts.optimizer.zero_grad(set_to_none=True)
+            loss, new_state = loss_fn(model_config, ts.params, ts.model_state, batch,
+                                      generator)
+            with trace.span("train.backward", device=dev):
+                loss.backward()
+            with trace.span("train.adam", device=dev):
+                ts.optimizer.step()
+            ts.model_state = tree_map(torch.Tensor.detach, new_state)
+            ts.step += 1
+            return ts, loss.detach()
 
     return step
 
 
 def _make_sharded_train_step(model_config: GINConfig, loss_fn: Callable, mesh):
-    def step(ts: TrainState, batch, generator: torch.Generator, marks=None):
-        ts.optimizer.zero_grad(set_to_none=True)
-        shards = _sharded_losses(model_config, loss_fn, mesh, ts, batch,
-                                 shard_generators(generator, mesh, ts.step))
-        if marks is not None:
-            marks("forward")
-        grads = [torch.autograd.grad(loss, leaves, allow_unused=True)
-                 for loss, _, leaves in shards]
-        if marks is not None:
-            marks("backward")
-        for k, leaf in enumerate(shards[0][2]):
-            per = [g[k] for g in grads]
-            if any(g is not None for g in per):
-                leaf.grad = mesh.mean([torch.zeros_like(leaf) if g is None else g
-                                       for g in per])
-        ts.optimizer.step()
-        if marks is not None:
-            marks("adam")
-        ts.model_state = tree_map(torch.Tensor.detach,
-                                  _mean_tree(mesh, [st for _, st, _ in shards]))
-        ts.step += 1
-        return ts, mesh.mean([loss.detach() for loss, _, _ in shards])
+    def step(ts: TrainState, batch, generator: torch.Generator):
+        dev = mesh.first
+        with trace.span("train.step", device=dev):
+            ts.optimizer.zero_grad(set_to_none=True)
+            shards = _sharded_losses(model_config, loss_fn, mesh, ts, batch,
+                                     shard_generators(generator, mesh, ts.step))
+            with trace.span("train.backward", device=dev):
+                grads = [torch.autograd.grad(loss, leaves, allow_unused=True)
+                         for loss, _, leaves in shards]
+            for k, leaf in enumerate(shards[0][2]):
+                per = [g[k] for g in grads]
+                if any(g is not None for g in per):
+                    leaf.grad = mesh.mean([torch.zeros_like(leaf) if g is None else g
+                                           for g in per])
+            with trace.span("train.adam", device=dev):
+                ts.optimizer.step()
+            ts.model_state = tree_map(torch.Tensor.detach,
+                                      _mean_tree(mesh, [st for _, st, _ in shards]))
+            ts.step += 1
+            return ts, mesh.mean([loss.detach() for loss, _, _ in shards])
 
     return step
 
