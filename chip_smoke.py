@@ -3103,7 +3103,7 @@ def run_phases(work: str) -> int:
                 raise AssertionError("align CLI wrote no local alignment")
 
         # the CLI's work again, stage by stage: host similarity, device DP
-        # (upload, kernel, download), host un-shear and traceback; and 32
+        # (upload, kernel, download), host traceback; and 32
         # pairs re-aligned by the plain wavefront on the card
         pairs = [(i, j) for i in range(ALIGN_RNAS) for j in range(i + 1, ALIGN_RNAS)]
         t_sim = t_dev = t_host = 0.0
@@ -3137,7 +3137,7 @@ def run_phases(work: str) -> int:
                    window_kernel_launches=window_launches,
                    plain_dp_launches=plain_launches,
                    host_similarity_seconds=t_sim, device_dp_seconds=t_dev,
-                   host_codes_dense_traceback_seconds=t_host,
+                   host_traceback_seconds=t_host,
                    plain_recheck_pairs=len(sims), plain_recheck_route=recheck_route,
                    plain_recheck_max_abs_err=max(err, cli_err))
 

@@ -14,7 +14,8 @@ Tie rules, identical in both versions:
   F (gap in A, left): from-H wins ties over from-F
   H: diag wins ties over E, E over F; local mode clamps at 0 (code 3)
      and keeps the first maximum (smallest d, then smallest i).
-Traceback codes ``TH | TE<<2 | TF<<3`` per cell are walked on the host.
+Traceback codes ``TH | TE<<2 | TF<<3`` per cell are walked on the host,
+in place on the diagonal planes.
 
 Global boundaries ``go + (k - 1) ge`` are rounded once, as the fused
 multiply-add XLA makes of the JAX package's expression (a separate
@@ -23,8 +24,6 @@ product and sum differ in the last bit for 2 of the first 40 ``k`` at
 """
 
 from __future__ import annotations
-
-import functools
 
 import numpy as np
 import torch
@@ -155,38 +154,27 @@ def wavefront_plain(scores: torch.Tensor, l1: torch.Tensor, l2: torch.Tensor,
 wavefront_plain.launches = 0  # runs on a CUDA device (outside the kernel's gate)
 
 
-@functools.lru_cache(maxsize=8)
-def _shear_index(D: int, L1: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """Masked (diag, i, j) scatter indices that un-shear a ``[D, L1+1]``
-    code plane into a dense ``[L1+1, L2+1]`` one; the same for every pair
-    of a batch."""
-    L2 = D - L1
-    dd, ii = np.meshgrid(np.arange(1, D + 1), np.arange(L1 + 1), indexing="ij")
-    jj = dd - ii
-    m = (jj >= 0) & (jj <= L2)
-    return dd[m] - 1, ii[m], jj[m]
+def _cell_codes(plane: np.ndarray):
+    """``code(i, j)`` of one pair's diagonal code plane ``[D, L1+1]``, as
+    the wavefront writes it: cell (i, j) sits at ``plane[i + j - 1, i]``;
+    cell (0, 0), which has no diagonal, reads 0."""
+    flat = memoryview(np.ascontiguousarray(plane, np.uint8)).cast("B")
+    w = plane.shape[1]
+
+    def code(i: int, j: int) -> int:
+        return flat[(i + j - 1) * w + i] if i or j else 0
+
+    return code
 
 
-def _codes_dense(plane: np.ndarray, L1: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """One pair's diagonal codes ``[D, L1+1]`` as dense TH/TE/TF
-    ``[L1+1, L2+1]`` planes."""
-    D = plane.shape[0]
-    L2 = D - L1
-    TH = np.zeros((L1 + 1, L2 + 1), np.uint8)
-    TE = np.zeros((L1 + 1, L2 + 1), np.uint8)
-    TF = np.zeros((L1 + 1, L2 + 1), np.uint8)
-    di, ii, jj = _shear_index(D, L1)
-    c = plane[di, ii]
-    TH[ii, jj] = c & 3
-    TE[ii, jj] = (c >> 2) & 1
-    TF[ii, jj] = (c >> 3) & 1
-    return TH, TE, TF
-
-
-def _traceback_global(TH, TE, TF, l1, l2):
+def _traceback_global(plane, l1, l2):
+    """Follow TH (``code & 3``) back from ``(l1, l2)``; a gap step stays
+    in its gap while TE (``code >> 2 & 1``, up) or TF (``code >> 3 & 1``,
+    left) of the cell it leaves says so."""
+    code = _cell_codes(plane)
     path = []
     i, j = l1, l2
-    state = TH[i, j]
+    state = code(i, j) & 3
     while i > 0 or j > 0:
         if state == 0:
             if i == 0 or j == 0:
@@ -194,32 +182,35 @@ def _traceback_global(TH, TE, TF, l1, l2):
             path.append((i - 1, j - 1))
             i -= 1
             j -= 1
-            state = TH[i, j]
+            state = code(i, j) & 3
         elif state == 1:
             if i == 0:
                 break
             path.append((i - 1, None))
-            prev = TE[i, j]
+            prev = (code(i, j) >> 2) & 1
             i -= 1
             state = 0 if prev == 0 else 1
         else:
             if j == 0:
                 break
             path.append((None, j - 1))
-            prev = TF[i, j]
+            prev = (code(i, j) >> 3) & 1
             j -= 1
             state = 0 if prev == 0 else 2
     path.reverse()
     return path
 
 
-def _traceback_local(TH, l1, l2, bi, bj):
+def _traceback_local(plane, bi, bj):
     """Follow TH from the best cell until a stop cell (code 3) or an
     edge; a gap step continues through TH at the new cell."""
+    code = _cell_codes(plane)
     path = []
     i, j = bi, bj
-    while i > 0 and j > 0 and TH[i, j] != 3:
-        tb = TH[i, j]
+    while i > 0 and j > 0:
+        tb = code(i, j) & 3
+        if tb == 3:
+            break
         if tb == 0:
             path.append((i - 1, j - 1))
             i -= 1
@@ -237,17 +228,13 @@ def _traceback_local(TH, l1, l2, bi, bj):
 def paths_from_codes(codes: np.ndarray, l1: np.ndarray, l2: np.ndarray,
                      bi: np.ndarray, bj: np.ndarray, mode: str) -> list[list]:
     """Walk every pair's ``[D, L1+1]`` code plane back to its path."""
-    L1 = codes.shape[2] - 1
     out = []
     for k in range(codes.shape[0]):
-        with trace.span("dp.unshear"):
-            TH, TE, TF = _codes_dense(codes[k], L1)
         with trace.span("dp.traceback"):
             if mode == "global":
-                out.append(_traceback_global(TH, TE, TF, int(l1[k]), int(l2[k])))
+                out.append(_traceback_global(codes[k], int(l1[k]), int(l2[k])))
             else:
-                out.append(_traceback_local(TH, int(l1[k]), int(l2[k]), int(bi[k]),
-                                            int(bj[k])))
+                out.append(_traceback_local(codes[k], int(bi[k]), int(bj[k])))
     return out
 
 

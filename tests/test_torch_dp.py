@@ -123,7 +123,8 @@ def test_local_all_negative_gives_empty_path(gaps):
 @pytest.mark.parametrize("mode", MODES)
 def test_wavefront_outputs_match_jax(mode):
     """best, best cell and the codes of every cell inside each pair's
-    rectangle equal the JAX wavefront's."""
+    rectangle (``i <= l1``, ``j <= l2``, ``i + j >= 1``, on the sheared
+    planes) equal the JAX wavefront's."""
     import jax.numpy as jnp
 
     from ginfinity_tpu.ops.dp import _wavefront
@@ -147,48 +148,97 @@ def test_wavefront_outputs_match_jax(mode):
     np.testing.assert_array_equal(bi, rbi)
     np.testing.assert_array_equal(bj, rbj)
     rcodes = np.transpose(rcodes, (1, 0, 2))  # [D, B, I] -> [B, D, I]
-    for k in range(B):
-        got = dp._codes_dense(codes[k], L1)
-        ref = dp._codes_dense(rcodes[k], L1)
-        for g, r in zip(got, ref):
-            np.testing.assert_array_equal(g[: l1[k] + 1, : l2[k] + 1],
-                                          r[: l1[k] + 1, : l2[k] + 1])
+    d = np.arange(1, L1 + L2 + 1)[None, :, None]
+    i = np.arange(L1 + 1)[None, None, :]
+    real = (i <= l1[:, None, None]) & (d - i >= 0) & (d - i <= l2[:, None, None])
+    assert codes.shape == rcodes.shape == real.shape and not real.all()
+    np.testing.assert_array_equal(codes[real], rcodes[real])
+
+
+def _shear(TH, TE, TF, L1, L2):
+    """Dense TH/TE/TF as a ``[L1 + L2, L1 + 1]`` diagonal code plane,
+    cell (i, j) at ``[i + j - 1, i]``; every other byte 0."""
+    plane = np.zeros((L1 + L2, L1 + 1), np.uint8)
+    for i in range(TH.shape[0]):
+        for j in range(TH.shape[1]):
+            if i + j >= 1:
+                plane[i + j - 1, i] = TH[i, j] | (TE[i, j] << 2) | (TF[i, j] << 3)
+    return plane
 
 
 def test_codes_dense_and_traceback_by_hand():
-    """A 2x2 pair whose codes are written out: un-shear, then both walks,
-    from every cell, against the JAX package's walks."""
+    """A 2x2 pair whose codes are written out: both walks read the
+    sheared plane in place, from every cell, against the JAX package's
+    walks on the dense planes."""
     # cells (i, j) of diagonal d = i + j; codes TH | TE << 2 | TF << 3
     TH = np.array([[0, 2, 2], [1, 0, 2], [1, 1, 0]], np.uint8)
     TE = np.array([[0, 0, 0], [0, 0, 0], [0, 1, 0]], np.uint8)
     TF = np.array([[0, 0, 1], [0, 0, 1], [0, 0, 0]], np.uint8)
     L1, L2 = 2, 2
-    plane = np.zeros((L1 + L2, L1 + 1), np.uint8)
+    plane = _shear(TH, TE, TF, L1, L2)
+    assert plane[2, 1] == TH[1, 2] | (TF[1, 2] << 3)  # cell (1, 2) of diagonal 3
+    assert dp._traceback_global(plane, 2, 2) == [(0, 0), (1, 1)]
+    # from (2, 1): up with TE = 1 (stay in the gap), up again, then the
+    # walk stops on row 0 in the diag state, as the reference's does
+    assert dp._traceback_global(plane, 2, 1) == [(0, None), (1, None)]
+    # from (1, 2): left with TF = 1, left again, then stops on column 0
+    assert dp._traceback_global(plane, 1, 2) == [(None, 0), (None, 1)]
+    for i in range(L1 + 1):
+        for j in range(L2 + 1):
+            assert dp._traceback_global(plane, i, j) == _traceback_global(TH, TE, TF, i, j)
+            assert dp._traceback_local(plane, i, j) == _traceback_local(TH, None, 2, 2, i, j)
+    assert dp._traceback_local(plane, 2, 2) == [(0, 0), (1, 1)]
+    th_stop = TH.copy()
+    th_stop[1, 1] = 3
+    assert dp._traceback_local(_shear(th_stop, TE, TF, L1, L2), 2, 2) == [(1, 1)]
+    assert dp._traceback_local(plane, 0, 0) == []
+    assert dp._cell_codes(np.full_like(plane, 255))(0, 0) == 0  # no diagonal holds (0, 0)
+
+
+def _dense(plane, L1, L2):
+    """A diagonal code plane un-sheared into dense TH/TE/TF ``[L1+1,
+    L2+1]``, cell (0, 0) 0: the layout the JAX package's walks read."""
+    TH, TE, TF = (np.zeros((L1 + 1, L2 + 1), np.uint8) for _ in range(3))
     for i in range(L1 + 1):
         for j in range(L2 + 1):
             if i + j >= 1:
-                plane[i + j - 1, i] = TH[i, j] | (TE[i, j] << 2) | (TF[i, j] << 3)
-    th, te, tf = dp._codes_dense(plane, L1)
-    np.testing.assert_array_equal(th, TH)
-    np.testing.assert_array_equal(te, TE)
-    np.testing.assert_array_equal(tf, TF)
-    assert dp._traceback_global(th, te, tf, 2, 2) == [(0, 0), (1, 1)]
-    # from (2, 1): up with TE = 1 (stay in the gap), up again, then the
-    # walk stops on row 0 in the diag state, as the reference's does
-    assert dp._traceback_global(th, te, tf, 2, 1) == [(0, None), (1, None)]
-    # from (1, 2): left with TF = 1, left again, then stops on column 0
-    assert dp._traceback_global(th, te, tf, 1, 2) == [(None, 0), (None, 1)]
-    for i in range(L1 + 1):
-        for j in range(L2 + 1):
-            assert dp._traceback_global(th, te, tf, i, j) == \
-                _traceback_global(th, te, tf, i, j)
-            assert dp._traceback_local(th, 2, 2, i, j) == \
-                _traceback_local(th, None, 2, 2, i, j)
-    assert dp._traceback_local(th, 2, 2, 2, 2) == [(0, 0), (1, 1)]
-    th_stop = th.copy()
-    th_stop[1, 1] = 3
-    assert dp._traceback_local(th_stop, 2, 2, 2, 2) == [(1, 1)]
-    assert dp._traceback_local(th, 2, 2, 0, 0) == []
+                c = plane[i + j - 1, i]
+                TH[i, j], TE[i, j], TF[i, j] = c & 3, (c >> 2) & 1, (c >> 3) & 1
+    return TH, TE, TF
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("mode", MODES)
+def test_walk_in_place_matches_dense_walk(mode, seed):
+    """Random code bytes on planes padded past every pair's real sides:
+    ``paths_from_codes`` equals the JAX package's walks on the dense
+    planes, from (l1, l2) in global mode and from a drawn cell in local
+    mode.  Among the pairs: 1 x 1, and all-diagonal pairs whose walks end
+    on row 0 and on column 0."""
+    rng = np.random.default_rng(seed)
+    sides = [(1, 1), (4, 9), (9, 4)] + [tuple(rng.integers(1, 30, size=2)) for _ in range(9)]
+    l1 = np.array([a for a, _ in sides], np.int32)
+    l2 = np.array([b for _, b in sides], np.int32)
+    L1, L2 = int(l1.max()) + 3, int(l2.max()) + 5
+    codes = rng.integers(0, 256, size=(len(sides), L1 + L2, L1 + 1), dtype=np.uint8)
+    codes[1:3] = 0  # every cell diagonal: the walks run to row 0 and to column 0
+    if mode == "global":
+        bi, bj = l1, l2
+    else:
+        bi = np.array([rng.integers(0, a + 1) for a in l1], np.int32)
+        bj = np.array([rng.integers(0, b + 1) for b in l2], np.int32)
+        bi[:3], bj[:3] = l1[:3], l2[:3]
+    got = dp.paths_from_codes(codes, l1, l2, bi, bj, mode)
+    for k, (a, b) in enumerate(sides):
+        TH, TE, TF = _dense(codes[k], L1, L2)
+        if mode == "global":
+            want = _traceback_global(TH, TE, TF, int(a), int(b))
+        else:
+            want = _traceback_local(TH, None, int(a), int(b), int(bi[k]), int(bj[k]))
+        assert got[k] == want, k
+    assert got[1] == [(k, 5 + k) for k in range(4)]  # 4 x 9: ends on row 0 at (0, 5)
+    assert got[2] == [(5 + k, k) for k in range(4)]  # 9 x 4: ends on column 0 at (5, 0)
+    assert len(got[0]) <= 1
 
 
 def test_affine_align_single_pair_and_bad_mode():

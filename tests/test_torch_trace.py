@@ -135,9 +135,8 @@ def test_dp_span_tree_counts_and_outputs(mode):
     assert on == off
     recs = trace.recorded()
     counts, parents = _tree(recs)
-    assert counts == {"dp.align_batch": 1, "dp.unshear": len(mats), "dp.traceback": len(mats)}
-    assert parents == {"dp.align_batch": {None}, "dp.unshear": {"dp.align_batch"},
-                       "dp.traceback": {"dp.align_batch"}}
+    assert counts == {"dp.align_batch": 1, "dp.traceback": len(mats)}
+    assert parents == {"dp.align_batch": {None}, "dp.traceback": {"dp.align_batch"}}
     root = next(r for r in recs if r.name == "dp.align_batch")
     L1 = max(m.shape[0] for m in mats)
     L2 = max(m.shape[1] for m in mats)
