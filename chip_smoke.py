@@ -189,10 +189,12 @@ from ginfinity_tpu_torch.ops import contrastive_loss as closs
 from ginfinity_tpu_torch.ops.dp import (
     affine_align_batch,
     dp_kernel_ok,
+    pack_batch,
     pad_batch,
     paths_from_codes,
     wavefront_plain,
 )
+from ginfinity_tpu_torch.ops.dp_traceback import dp_traceback, paths_from_arrays
 from ginfinity_tpu_torch.ops.dp_wavefront import (
     barrier_probe,
     dp_wavefront,
@@ -517,8 +519,9 @@ def dp_tensors(mats, dev, L1=None, L2=None):
 def dp_compare(mats, go, ge, mode, dev, both=False) -> tuple[float, list, str]:
     """K2 against the plain wavefront on the same batch on the card, on
     the route the wrapper chooses and, with ``both``, on the CTA route
-    too when the wrapper chose the warp route: identical paths, best
-    cells and codes on every pair's rectangle, |score| within DP_TOL.
+    too when the wrapper chose the warp route: identical paths (walked
+    on the host and by the card's walk kernel), best cells and codes on
+    every pair's rectangle, |score| within DP_TOL.
     Returns the max score difference, the plain version's (score, path)
     per pair and the route the wrapper took (read from the launch
     counts)."""
@@ -546,6 +549,9 @@ def dp_compare(mats, go, ge, mode, dev, both=False) -> tuple[float, list, str]:
             raise AssertionError(f"{what}: codes differ on a pair's rectangle")
         if paths != paths_from_codes(got[3], l1, l2, got[1], got[2], mode):
             raise AssertionError(f"{what}: paths differ")
+        walk = dp_traceback(out[3], l1d, l2d, out[1], out[2], mode)
+        if paths != paths_from_arrays(*(t.cpu().numpy() for t in walk)):
+            raise AssertionError(f"{what}: the card's walk (dp_traceback) differs")
         errs.append(err)
     return max(errs), list(zip(ref[0].tolist(), paths)), took
 
@@ -3186,7 +3192,7 @@ def run_phases(work: str) -> int:
         n_pairs = ALIGN_RNAS * (ALIGN_RNAS - 1) // 2
 
         forward_windows.launches = dp_wavefront.launches = wavefront_plain.launches = 0
-        dp_wavefront.warp_launches = 0
+        dp_wavefront.warp_launches = dp_traceback.launches = 0
         t0 = time.perf_counter()
         node_embed.main(["--input", src, "--id-column", "rid", "--output", nodes,
                          "--model-path", ckpt, "--keep-cols", "secondary_structure",
@@ -3209,11 +3215,16 @@ def run_phases(work: str) -> int:
         dp_launches, plain_launches = dp_wavefront.launches, wavefront_plain.launches
         warp_launches = dp_wavefront.warp_launches
         window_launches = forward_windows.launches
+        walk_launches = dp_traceback.launches
         expected = -(-n_pairs // ALIGN_BATCH)
         if batch_launches != expected or dp_launches != expected + 1 or plain_launches:
             raise AssertionError(f"the align path launched K2 {batch_launches} + "
                                  f"{dp_launches - batch_launches} times (expected {expected}"
                                  f" + 1) and the plain DP {plain_launches} times")
+        if walk_launches != expected + 1:
+            raise AssertionError(f"the align path launched the walk kernel {walk_launches} "
+                                 f"times (expected {expected} + 1): a path was walked on "
+                                 "the host")
         if warp_launches != dp_launches:
             raise AssertionError(f"{dp_launches - warp_launches} of the align path's "
                                  f"{dp_launches} K2 launches took the CTA route")
@@ -3260,25 +3271,38 @@ def run_phases(work: str) -> int:
             if 'mode="local"' not in f.read():
                 raise AssertionError("align CLI wrote no local alignment")
 
-        # the CLI's work again, stage by stage: host similarity, device DP
-        # (upload, kernel, download), host traceback; and 32
-        # pairs re-aligned by the plain wavefront on the card
+        # the CLI's work again, stage by stage as affine_align_batch runs
+        # it: host similarity, packing into page-locked memory, upload and
+        # K2, the walk kernel and the download of its paths, the host's
+        # decode; and 32 pairs re-aligned by the plain wavefront on the card
         pairs = [(i, j) for i in range(ALIGN_RNAS) for j in range(i + 1, ALIGN_RNAS)]
-        t_sim = t_dev = t_host = 0.0
+        stage_s = dict.fromkeys(("similarity", "pack", "upload_k2", "walk_download",
+                                 "decode"), 0.0)
         dp_batches = []
         for s0 in range(0, n_pairs, ALIGN_BATCH):
             chunk = pairs[s0:s0 + ALIGN_BATCH]
-            t0 = time.perf_counter()
+            t = [time.perf_counter()]
             sims = [cosine_similarity_matrix(mats[i], mats[j]).astype(np.float32)
                     for i, j in chunk]
-            t1 = time.perf_counter()
-            sd, l1d, l2d, l1, l2 = dp_tensors(sims, dev)
-            best, bi, bj, codes = (t.cpu().numpy() for t in
-                                   dp_wavefront(sd, l1d, l2d, -1.0, -1.0, "global"))
-            t2 = time.perf_counter()
-            paths_from_codes(codes, l1, l2, bi, bj, "global")
-            t3 = time.perf_counter()
-            t_sim, t_dev, t_host = t_sim + t1 - t0, t_dev + t2 - t1, t_host + t3 - t2
+            t.append(time.perf_counter())
+            shape = (len(sims), max(m.shape[0] for m in sims), max(m.shape[1] for m in sims))
+            pinned = torch.empty(shape, dtype=torch.float32, pin_memory=True)
+            sides = torch.empty((2, len(sims)), dtype=torch.int32, pin_memory=True)
+            pack_batch(sims, pinned.numpy(), *sides.numpy())
+            t.append(time.perf_counter())
+            sd, l1d, l2d = (x.to(dev, non_blocking=True) for x in (pinned, *sides))
+            best, bi, bj, codes = dp_wavefront(sd, l1d, l2d, -1.0, -1.0, "global")
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            walk = [x.to("cpu", non_blocking=True)
+                    for x in dp_traceback(codes, l1d, l2d, bi, bj, "global")]
+            best = best.to("cpu", non_blocking=True)
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            paths_from_arrays(*(x.numpy() for x in walk))
+            t.append(time.perf_counter())
+            for k, key in enumerate(stage_s):
+                stage_s[key] += t[k + 1] - t[k]
             dp_batches.append(sims)
         sims = dp_batches[0][:32]
         err, plain_res, recheck_route = dp_compare(sims, -1.0, -1.0, "global", dev)
@@ -3294,8 +3318,8 @@ def run_phases(work: str) -> int:
                    dp_kernel_warp_launches=warp_launches,
                    window_kernel_launches=window_launches,
                    plain_dp_launches=plain_launches,
-                   host_similarity_seconds=t_sim, device_dp_seconds=t_dev,
-                   host_traceback_seconds=t_host,
+                   dp_walk_kernel_launches=walk_launches,
+                   stage_seconds=stage_s,
                    plain_recheck_pairs=len(sims), plain_recheck_route=recheck_route,
                    plain_recheck_max_abs_err=max(err, cli_err))
 
@@ -3393,6 +3417,33 @@ def run_phases(work: str) -> int:
                              dependency_floor_ms=dep_ms, dependency_floor_of="cta route")
         rec["dp_wavefront"] = dp_t
 
+        # the walk kernel on the same batch's K2 codes, against the host
+        # walk of the same codes.  Its floor is its longest path alone: a
+        # chain of dependent loads, one a step, which no number of pairs
+        # beside it shortens
+        sd, l1d, l2d, l1, l2 = dp_tensors(sims, dev)
+        best, bi, bj, codes = dp_wavefront(sd, l1d, l2d, -1.0, -1.0, "global")
+        args = [codes, l1d, l2d, bi, bj]
+        got = paths_from_arrays(*(t.cpu().numpy() for t in dp_traceback(*args, "global")))
+        h_bi, h_bj, h_codes = (t.cpu().numpy() for t in (bi, bj, codes))
+        host_s = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            want = paths_from_codes(h_codes, l1, l2, h_bi, h_bj, "global")
+            host_s.append(time.perf_counter() - t0)
+        if got != want:
+            raise AssertionError("the walk kernel's paths differ from the host walk's")
+        steps = [len(p) for p in want]
+        k = int(np.argmax(steps))
+        w_ms = cuda_ms(lambda: dp_traceback(*args, "global"), 50)
+        floor_ms = cuda_ms(lambda: dp_traceback(*(t[k:k + 1] for t in args), "global"), 50)
+        rec["dp_traceback"] = dict(
+            pairs=len(sims), L1=sd.shape[1], L2=sd.shape[2],
+            steps=sum(steps), ms=w_ms, plain_ms=min(host_s) * 1e3, plain_on="host",
+            bound_ms=floor_ms, bound_by="longest path alone", chain_steps=steps[k],
+            ns_per_chain_step=floor_ms * 1e6 / steps[k], share_of_bound=floor_ms / w_ms)
+        walk_t = rec["dp_traceback"]
+
     print(card)
     k2 = dp_t["batch"]
     print(json.dumps({"kernels": [{
@@ -3435,6 +3486,19 @@ def run_phases(work: str) -> int:
         "plain_ms": k2["plain_ms"],
         "bound_ms": k2["bound_ms"],
         "bound_by": k2["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "dp_traceback",
+        "route": "cuda",
+        "design": "thread-per-pair",
+        "source": "ginfinity_tpu_torch/ops/csrc/dp_traceback.cu",
+        "replaces": "ginfinity_tpu/ops/dp.py:213 (host walk, no TPU kernel)",
+        "launches": walk_launches,
+        "paths_differing": 0,
+        "ms": walk_t["ms"],
+        "plain_ms": walk_t["plain_ms"],
+        "bound_ms": walk_t["bound_ms"],
+        "bound_by": walk_t["bound_by"],
         "library_ms": None,
     }, {
         "name": "value_traceback",

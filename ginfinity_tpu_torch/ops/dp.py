@@ -14,8 +14,10 @@ Tie rules, identical in both versions:
   F (gap in A, left): from-H wins ties over from-F
   H: diag wins ties over E, E over F; local mode clamps at 0 (code 3)
      and keeps the first maximum (smallest d, then smallest i).
-Traceback codes ``TH | TE<<2 | TF<<3`` per cell are walked on the host,
-in place on the diagonal planes.
+Traceback codes ``TH | TE<<2 | TF<<3`` per cell are walked in place on
+the diagonal planes, on the device that made them: on a card by the
+kernel ``csrc/dp_traceback.cu`` (``ops/dp_traceback.py``), so that the
+planes never leave it; on the CPU by :func:`paths_from_codes`.
 
 Global boundaries ``go + (k - 1) ge`` are rounded once, as the fused
 multiply-add XLA makes of the JAX package's expression (a separate
@@ -227,15 +229,14 @@ def _traceback_local(plane, bi, bj):
 
 def paths_from_codes(codes: np.ndarray, l1: np.ndarray, l2: np.ndarray,
                      bi: np.ndarray, bj: np.ndarray, mode: str) -> list[list]:
-    """Walk every pair's ``[D, L1+1]`` code plane back to its path."""
-    out = []
-    for k in range(codes.shape[0]):
-        with trace.span("dp.traceback"):
-            if mode == "global":
-                out.append(_traceback_global(codes[k], int(l1[k]), int(l2[k])))
-            else:
-                out.append(_traceback_local(codes[k], int(bi[k]), int(bj[k])))
-    return out
+    """Walk every pair's ``[D, L1+1]`` code plane back to its path, on
+    the host: the walk of a CPU device's codes, and the plain version of
+    the card's walk (``ops/dp_traceback.py``), which follows the same
+    rules."""
+    if mode == "global":
+        return [_traceback_global(codes[k], int(l1[k]), int(l2[k]))
+                for k in range(codes.shape[0])]
+    return [_traceback_local(codes[k], int(bi[k]), int(bj[k])) for k in range(codes.shape[0])]
 
 
 def dp_kernel_ok(L1: int, L2: int, mode: str, smem_limit: int | None = None) -> bool:
@@ -268,6 +269,24 @@ def pad_batch(score_mats: list[np.ndarray], L1: int | None = None,
     return scores, l1, l2
 
 
+def pack_batch(score_mats: list[np.ndarray], scores: np.ndarray, l1: np.ndarray,
+               l2: np.ndarray) -> None:
+    """Writes what :func:`pad_batch` gives, followed by ``len(scores) -
+    len(score_mats)`` dummy 1 x 1 pairs of score 0 (a mesh's padding),
+    into the caller's arrays, whatever they held: the scores ``[n, L1,
+    L2]``, every cell outside a pair's rectangle 0, and the sides ``l1``,
+    ``l2 [n]``."""
+    B = len(score_mats)
+    for k, m in enumerate(score_mats):
+        a, b = m.shape
+        scores[k, :a, :b] = m
+        scores[k, :a, b:] = 0
+        scores[k, a:] = 0
+        l1[k], l2[k] = a, b
+    scores[B:] = 0
+    l1[B:] = l2[B:] = 1
+
+
 def _wavefront_on(scores: torch.Tensor, l1: torch.Tensor, l2: torch.Tensor,
                   gap_open: float, gap_extend: float, mode: str):
     """``(best, bi, bj, codes)`` of a padded batch on its device: the CUDA
@@ -294,27 +313,51 @@ def affine_align_batch(score_mats: list[np.ndarray], gap_open: float, gap_extend
     unless ``"cpu"`` is asked for): the batch is padded with dummy 1 x 1
     pairs to a multiple of the mesh size, each shard's block of pairs runs
     on its device (the kernel on a card), and the results come back in
-    order, the dummies dropped.
+    order, the dummies dropped.  The batch is packed once
+    (:func:`pack_batch`), into page-locked memory when the mesh has a
+    card, so that each shard's upload is one asynchronous copy.  Each
+    shard's paths are walked where its codes were made
+    (``ops/dp_traceback.py``): on a card by the kernel
+    ``csrc/dp_traceback.cu``, so that only the scores and paths come
+    down, in one synchronisation a card; on the CPU by
+    :func:`paths_from_codes`.  The root span also counts
+    ``walked_on_card``, the pairs the kernel walked.
     """
+    from ginfinity_tpu_torch.ops.dp_traceback import dp_traceback, paths_from_arrays
+
     _check_mode(mode)
     mesh = mesh or DataMesh([resolve_device(device)])
     if not score_mats:
         return []
+    B, n = len(score_mats), mesh.padded(len(score_mats))
+    L1 = max(1, max(m.shape[0] for m in score_mats))
+    L2 = max(1, max(m.shape[1] for m in score_mats))
+    cards = [d for d in dict.fromkeys(mesh.devices) if d.type == "cuda"]
     with trace.span("dp.align_batch") as sp:
-        scores, l1, l2 = pad_batch(score_mats)
-        B, L1, L2 = scores.shape
-        sp.add(pairs=B, cells_real=int(((l1.astype(np.int64) + 1) * (l2 + 1)).sum()),
-               cells_padded=B * (L1 + 1) * (L2 + 1))
-        pad = mesh.padded(B) - B
-        shards = zip(*(mesh.split(torch.from_numpy(x)) for x in (
-            np.concatenate([scores, np.zeros((pad, L1, L2), np.float32)]),
-            np.concatenate([l1, np.ones(pad, np.int32)]),
-            np.concatenate([l2, np.ones(pad, np.int32)]))))
-        parts = [_wavefront_on(*shard, gap_open, gap_extend, mode) for shard in shards]
-        best, bi, bj, codes = (mesh.gather([p[k] for p in parts], B) for k in range(4))
-        best, bi, bj = best.cpu().numpy(), bi.cpu().numpy(), bj.cpu().numpy()
-        paths = paths_from_codes(codes.cpu().numpy(), l1, l2, bi, bj, mode)
-    return [(float(best[k]), paths[k]) for k in range(B)]
+        scores = torch.empty((n, L1, L2), dtype=torch.float32, pin_memory=bool(cards))
+        lengths = torch.empty((2, n), dtype=torch.int32, pin_memory=bool(cards))
+        pack_batch(score_mats, scores.numpy(), *lengths.numpy())
+        l1, l2 = lengths.numpy()[:, :B].astype(np.int64)
+        sp.add(pairs=B, cells_real=int(((l1 + 1) * (l2 + 1)).sum()),
+               cells_padded=B * (L1 + 1) * (L2 + 1),
+               walked_on_card=sum(len(r) for r, d in zip(mesh.blocks(B), mesh.devices)
+                                  if d.type == "cuda"))
+        shards = zip(*(mesh.split(x, non_blocking=True) for x in (scores, *lengths)))
+        parts = [(s_l1, s_l2, *_wavefront_on(s, s_l1, s_l2, gap_open, gap_extend, mode))
+                 for s, s_l1, s_l2 in shards]
+        for d in cards:  # K2 done: the walk's span times the walk alone
+            torch.cuda.synchronize(d)
+        with trace.span("dp.traceback"):
+            # a card's results come down into page-locked memory, in one
+            # synchronisation a card
+            walks = [[t.to("cpu", non_blocking=True) for t in
+                      (best, *dp_traceback(codes, s_l1, s_l2, bi, bj, mode))]
+                     for s_l1, s_l2, best, bi, bj, codes in parts]
+            for d in cards:
+                torch.cuda.current_stream(d).synchronize()
+            results = [r for best, *walk in walks for r in
+                       zip(best.tolist(), paths_from_arrays(*(t.numpy() for t in walk)))]
+    return results[:B]
 
 
 def affine_align(score: np.ndarray, gap_open: float, gap_extend: float,

@@ -66,13 +66,15 @@ class DataMesh:
         per = self.padded(n) // self.size
         return [range(min(n, s * per), min(n, (s + 1) * per)) for s in range(self.size)]
 
-    def split(self, x: torch.Tensor) -> list[torch.Tensor]:
+    def split(self, x: torch.Tensor, non_blocking: bool = False) -> list[torch.Tensor]:
         """``x``'s leading axis, a multiple of the mesh size, as equal
-        contiguous blocks, block ``s`` on device ``s``."""
+        contiguous blocks, block ``s`` on device ``s`` (copied as
+        ``Tensor.to`` copies with ``non_blocking``)."""
         if x.shape[0] % self.size:
             raise ValueError(f"leading axis {x.shape[0]} is not a multiple of {self.size}")
         per = x.shape[0] // self.size
-        return [x[s * per:(s + 1) * per].to(d) for s, d in enumerate(self.devices)]
+        return [x[s * per:(s + 1) * per].to(d, non_blocking=non_blocking)
+                for s, d in enumerate(self.devices)]
 
     def gather(self, parts: Sequence[torch.Tensor], n: int | None = None) -> torch.Tensor:
         """Shard blocks concatenated in shard order on the first device,

@@ -48,7 +48,7 @@ from ginfinity_tpu.training import train as JT
 from ginfinity_tpu_torch.graphs import batching
 from ginfinity_tpu_torch.models import gine
 from ginfinity_tpu_torch.models.gine import GINConfig, _leaves
-from ginfinity_tpu_torch.ops import dp
+from ginfinity_tpu_torch.ops import dp, dp_traceback
 from ginfinity_tpu_torch.ops import pairhmm
 from ginfinity_tpu_torch.parallel import mesh as mesh_mod
 from ginfinity_tpu_torch.parallel.mesh import DataMesh, data_parallel_mesh, make_data_mesh
@@ -189,14 +189,17 @@ def test_align_batch_mesh_matches_jax(mode, monkeypatch):
     """13 pairs pad to 16 on 8 shards (``tests/test_multichip.py``)."""
     mats = _mats()
     want = jdp.affine_align_batch(mats, -1.0, -0.5, mode, mesh=jmesh())
-    seen = []
-    real = dp.paths_from_codes
-    monkeypatch.setattr(dp, "paths_from_codes", lambda codes, *a: seen.append(codes) or
-                        real(codes, *a))
+    seen = []  # the codes each host walk is given: one a shard
+    real = dp_traceback.paths_from_codes
+    monkeypatch.setattr(dp_traceback, "paths_from_codes", lambda codes, *a:
+                        seen.append(codes) or real(codes, *a))
     got = dp.affine_align_batch(mats, -1.0, -0.5, mode, mesh=_cpus(8))
+    sharded = np.concatenate(seen)
+    seen.clear()
     alone = dp.affine_align_batch(mats, -1.0, -0.5, mode, device="cpu")
     assert got == alone
-    assert np.array_equal(seen[0], seen[1]) and seen[0].shape[0] == 13
+    assert sharded.shape[0] == 16 and len(seen) == 1 and seen[0].shape[0] == 13
+    assert np.array_equal(sharded[:13], seen[0])
     assert [s for s, _ in got] == [s for s, _ in want]
     assert [p for _, p in got] == [p for _, p in want]
 
