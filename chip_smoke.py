@@ -188,23 +188,21 @@ from ginfinity_tpu_torch.ops import _build
 from ginfinity_tpu_torch.ops import contrastive_loss as closs
 from ginfinity_tpu_torch.ops.dp import (
     affine_align_batch,
-    dp_kernel_ok,
     pack_batch,
     pad_batch,
     paths_from_codes,
-    wavefront_plain,
 )
 from ginfinity_tpu_torch.ops.dp_traceback import dp_traceback, paths_from_arrays
 from ginfinity_tpu_torch.ops.dp_wavefront import (
-    barrier_probe,
+    dp_kernel_ok,
     dp_wavefront,
     launch,
     rectangle_mask,
     route,
     smem_limit,
+    wavefront_plain,
 )
 from ginfinity_tpu_torch.ops.windows_encoder import (
-    _library,
     forward_windows,
     forward_windows_reference,
     pack_params,
@@ -238,7 +236,7 @@ from ginfinity_tpu_torch.pipelines.engine import InferenceEngine, preprocess_str
 from ginfinity_tpu_torch.pipelines.fast_windows import (
     _chunk_for,
     _dense_forward_ok,
-    _embed_group,
+    _group_host,
     _pack_group,
     _prep_corpus_groups,
     _window_chunk,
@@ -421,6 +419,25 @@ def chunk_inputs(cfg, params, structures, L, dev, C=None):
     si = torch.from_numpy(sidx[sel]).to(dev, torch.int64)
     st = torch.from_numpy(starts[sel]).to(dev, torch.int64)
     return _window_chunk(cfg, params, feats_d, pts_d, si, st, L, True)
+
+
+def plain_windows(model, per, n_cap: int, idxs, L: int) -> torch.Tensor:
+    """Every window of one length group through the plain encoder as the
+    JAX package's XLA path computes it (partner rows gathered exactly),
+    chunk by chunk as the main path cuts the group, on the model's device."""
+    cfg, dev = model.config, model.device
+    feats, pts, si, st, w_cap = _group_host(cfg, per, n_cap, idxs)
+    feats_d = torch.from_numpy(feats).to(dev)
+    pts_d = torch.from_numpy(pts).to(dev, torch.int64)
+    si, st = (torch.from_numpy(a).to(dev, torch.int64) for a in (si, st))
+    chunk = _chunk_for(w_cap)
+    out = []
+    for c0 in range(0, si.shape[0], chunk):
+        x0, flags = _window_chunk(cfg, model.params, feats_d, pts_d, si[c0:c0 + chunk],
+                                  st[c0:c0 + chunk], L, True)
+        out.append(forward_windows_reference(cfg, model.params, model.state, x0, *flags, L,
+                                             exact_gather=True))
+    return torch.cat(out)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -3151,8 +3168,7 @@ def run_phases(work: str) -> int:
         per, groups = _prep_corpus_groups(cfg, sub, WINDOW, True, 0.0)
         sample_err = 0.0
         for n_cap, idxs in groups.items():
-            plain = _embed_group(model, per, n_cap, idxs, WINDOW, True, use_kernel=False)
-            plain = plain.cpu().numpy()
+            plain = plain_windows(model, per, n_cap, idxs, WINDOW).cpu().numpy()
             off = 0
             for i in idxs:
                 for st in per[i][4]:
@@ -3371,7 +3387,8 @@ def run_phases(work: str) -> int:
         rec.update(windows=x0.shape[0], L=WINDOW, ms=ms, plain_ms=plain_ms,
                    bound_ms=bound_ms, bound_by=bound_by, fma_bound_ms=fma_bound_ms,
                    active_rows_mean=rows.mean().item(), active_rows_max=rows.max().item(),
-                   smem_rows=_library().windows_encoder_smem_rows(WINDOW, cfg.hidden_dims[-1]),
+                   smem_rows=_build.library().windows_encoder_smem_rows(WINDOW,
+                                                                       cfg.hidden_dims[-1]),
                    max_abs_err=errs[-1])
 
         # K1's bf16 route on the same windows, as the bf16 path builds them
@@ -3391,9 +3408,7 @@ def run_phases(work: str) -> int:
 
         # K2 on the align path's first batch, as the CLI pads it and padded
         # to 384 x 384: the route the wrapper takes (ms, the warp route) and
-        # the CTA route (cta_ms) on the same inputs, in turns.  The
-        # dependency floor is the CTA route's: the probe's time for the same
-        # number of diagonal steps in CTAs of the same shape
+        # the CTA route (cta_ms) on the same inputs, in turns
         sims = dp_batches[0]
         dp_t = {}
         for key, L in (("batch", None), ("384", 384)):
@@ -3408,13 +3423,11 @@ def run_phases(work: str) -> int:
                 times[kind].append(cuda_ms(fn, 10))
             p_ms = cuda_ms(lambda: wavefront_plain(*run), 2)
             b_ms, b_by, nbytes = dp_bounds(l1, l2)
-            dep_ms = cuda_ms(lambda: barrier_probe(B, L1 + L2, L1, dev), 20)
             k_ms, c_ms = (sum(times[k]) / 2 for k in ("warp", "cta"))
             dp_t[key] = dict(pairs=B, L1=L1, L2=L2, route=rte[0], rows_per_lane=rte[1],
                              ms=k_ms, cta_ms=c_ms, ms_runs=times["warp"],
                              cta_ms_runs=times["cta"], plain_ms=p_ms, bound_ms=b_ms,
-                             bound_by=b_by, bytes=nbytes, share_of_bound=b_ms / k_ms,
-                             dependency_floor_ms=dep_ms, dependency_floor_of="cta route")
+                             bound_by=b_by, bytes=nbytes, share_of_bound=b_ms / k_ms)
         rec["dp_wavefront"] = dp_t
 
         # the walk kernel on the same batch's K2 codes, against the host

@@ -21,9 +21,9 @@ fit.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
+
+from ginfinity_tpu_torch.ops import _build
 
 # depth of a cosine stage: D is padded with zero columns to a multiple
 _BK = {torch.float32: 32, torch.float64: 16}
@@ -72,12 +72,6 @@ def _padded(x: torch.Tensor) -> torch.Tensor:
     return x if dp == d else torch.nn.functional.pad(x, (0, dp - d))
 
 
-def _check(lib: ctypes.CDLL, err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"contrastive_loss {what} launch failed: "
-                           + lib.cuda_error_string(err).decode())
-
-
 class _Loss(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, lab, grp, flags, temperature, margin):
@@ -92,14 +86,10 @@ class _Loss(torch.autograd.Function):
         part_i = torch.empty(2 * nblk, dtype=torch.int64, device=dev)
         loss = torch.empty((), dtype=x.dtype, device=dev)
         stats = torch.empty(3, **f64)
-        lib = _library()
-        with torch.cuda.device(dev):
-            err = lib.contrastive_loss_forward(
-                int(x.dtype == torch.float64), xp.data_ptr(), m, dp, lab.data_ptr(),
-                grp.data_ptr(), flags.data_ptr(), temperature, margin, int(margin > 0.0),
-                lse.data_ptr(), pcount.data_ptr(), part_f.data_ptr(), part_i.data_ptr(),
-                loss.data_ptr(), stats.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-        _check(lib, err, "forward")
+        _build.call("contrastive_loss_forward", dev, int(x.dtype == torch.float64),
+                    xp.data_ptr(), m, dp, lab.data_ptr(), grp.data_ptr(), flags.data_ptr(),
+                    temperature, margin, int(margin > 0.0), lse.data_ptr(), pcount.data_ptr(),
+                    part_f.data_ptr(), part_i.data_ptr(), loss.data_ptr(), stats.data_ptr())
         contrastive_loss.launches += 1
         ctx.save_for_backward(xp, lab, grp, flags, lse, pcount, stats)
         ctx.d, ctx.temperature, ctx.margin = x.shape[1], temperature, margin
@@ -113,14 +103,10 @@ class _Loss(torch.autograd.Function):
         dev = xp.device
         grad = grad.to(xp.dtype).contiguous()
         dx = torch.empty_like(xp)
-        lib = _library()
-        with torch.cuda.device(dev):
-            err = lib.contrastive_loss_backward(
-                int(xp.dtype == torch.float64), xp.data_ptr(), m, dp, lab.data_ptr(),
-                grp.data_ptr(), flags.data_ptr(), ctx.temperature, ctx.margin,
-                int(ctx.margin > 0.0), lse.data_ptr(), pcount.data_ptr(), stats.data_ptr(),
-                grad.data_ptr(), dx.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-        _check(lib, err, "backward")
+        _build.call("contrastive_loss_backward", dev, int(xp.dtype == torch.float64),
+                    xp.data_ptr(), m, dp, lab.data_ptr(), grp.data_ptr(), flags.data_ptr(),
+                    ctx.temperature, ctx.margin, int(ctx.margin > 0.0), lse.data_ptr(),
+                    pcount.data_ptr(), stats.data_ptr(), grad.data_ptr(), dx.data_ptr())
         contrastive_loss.backward_launches += 1
         return dx[:, :ctx.d], None, None, None, None, None
 
@@ -196,26 +182,3 @@ def contrastive_loss_blockwise(x: torch.Tensor, labels: torch.Tensor, graph_ids:
             w = w + torch.where(neg & (lt - margin >= 0), c_neg, 0.0)
         dx = dx + w @ x[cols]
     return loss, dx
-
-
-_lib = None
-
-
-def _library() -> ctypes.CDLL:
-    """The kernels' shared library, built and bound at first use."""
-    global _lib
-    if _lib is None:
-        from ginfinity_tpu_torch.ops._build import build_library
-
-        lib = ctypes.CDLL(str(build_library()))
-        p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-        lib.contrastive_loss_forward.argtypes = [i, p, i, i, p, p, p, d, d, i,
-                                                 p, p, p, p, p, p, p]
-        lib.contrastive_loss_forward.restype = i
-        lib.contrastive_loss_backward.argtypes = [i, p, i, i, p, p, p, d, d, i,
-                                                  p, p, p, p, p, p]
-        lib.contrastive_loss_backward.restype = i
-        lib.cuda_error_string.argtypes = [i]
-        lib.cuda_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib

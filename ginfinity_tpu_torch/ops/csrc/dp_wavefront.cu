@@ -26,9 +26,9 @@
 // 22.9 MB); its arithmetic (~10 float32 operations a cell) less.  But the
 // l1 + l2 diagonals of a pair are a chain of dependent steps, so what
 // bounds a design is the time of one step times the steps.  In the CTA
-// route a step is a CTA barrier round (117 ns alone,
-// dp_barrier_probe_kernel) plus the score load and five shared-memory
-// reads behind it: ~506 ns.  The warp route has no barrier: its step is
+// route a step is a CTA barrier round (117 ns alone, as a probe of
+// dependent barrier rounds in CTAs of this shape read it) plus the score
+// load and five shared-memory reads behind it: ~506 ns.  The warp route has no barrier: its step is
 // what one warp issues for its R cells, each some twenty compares,
 // selects and adds that depend on one another, in one of the SM's four
 // sub-partitions.  chip_smoke.py reads the align batch at 0.222 ms on the
@@ -498,24 +498,6 @@ int launch_warp_rows(const void* scores, const void* l1, const void* l2, int B, 
            static_cast<cudaStream_t>(stream));
 }
 
-// A chain of dependent steps with the CTA route's shape and nothing else:
-// each step reads row i - 1 of the previous diagonal from shared memory,
-// writes row i of the next, and waits at the CTA barrier.  Its time over
-// `steps` is the cost of one diagonal step that no work can hide.
-__global__ void dp_barrier_probe_kernel(int steps, int I, float* __restrict__ out) {
-  extern __shared__ float smem[];
-  for (int i = threadIdx.x; i < 2 * I; i += blockDim.x) smem[i] = (float)i;
-  __syncthreads();
-  for (int d = 1; d <= steps; ++d) {
-    const float* prev = smem + ((d - 1) & 1) * I;
-    float* cur = smem + (d & 1) * I;
-    for (int i = threadIdx.x; i < I; i += blockDim.x)
-      cur[i] = (i > 0 ? prev[i - 1] : prev[I - 1]) + 1.f;
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) out[blockIdx.x] = smem[(steps & 1) * I];
-}
-
 int threads_for(int I) {
   const int t = (I + 31) / 32 * 32;
   return t < kMaxThreads ? t : kMaxThreads;
@@ -580,21 +562,6 @@ int dp_wavefront_warp_launch(const void* scores, const void* l1, const void* l2,
     default:
       return (int)cudaErrorInvalidValue;
   }
-}
-
-// `blocks` CTAs of the CTA route's thread count at padded length L1, each
-// running `steps` dependent steps.
-int dp_barrier_probe_launch(int blocks, int steps, int L1, void* out, void* stream) {
-  const int I = L1 + 1;
-  const size_t smem = (size_t)2 * I * sizeof(float);
-  if (smem > kDefaultSmem) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        dp_barrier_probe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  dp_barrier_probe_kernel<<<blocks, threads_for(I), smem, static_cast<cudaStream_t>(stream)>>>(
-      steps, I, static_cast<float*>(out));
-  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

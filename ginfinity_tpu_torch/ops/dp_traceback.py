@@ -13,12 +13,12 @@ lists the callers take.
 
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 
-from ginfinity_tpu_torch.ops.dp import _check_mode, paths_from_codes
+from ginfinity_tpu_torch.ops import _build
+from ginfinity_tpu_torch.ops.dp import paths_from_codes
+from ginfinity_tpu_torch.ops.dp_wavefront import _check_mode
 
 
 def dp_traceback(codes: torch.Tensor, l1: torch.Tensor, l2: torch.Tensor,
@@ -32,10 +32,8 @@ def dp_traceback(codes: torch.Tensor, l1: torch.Tensor, l2: torch.Tensor,
     order; the entries before them are unspecified.  Each kernel launch
     adds one to ``dp_traceback.launches``."""
     local = _check_mode(mode)
-    if codes.device.type == "cpu":
+    if not _build.on_card(codes, "dp_traceback"):
         return dp_traceback_plain(codes, l1, l2, bi, bj, mode)
-    if codes.device.type != "cuda":
-        raise ValueError(f"dp_traceback: unsupported device {codes.device}")
     if codes.dtype != torch.uint8 or codes.dim() != 3 or not codes.is_contiguous():
         raise ValueError("codes must be a contiguous uint8 [B, L1+L2, L1+1] tensor, got "
                          f"{codes.dtype} {tuple(codes.shape)}")
@@ -50,14 +48,9 @@ def dp_traceback(codes: torch.Tensor, l1: torch.Tensor, l2: torch.Tensor,
     n = torch.empty(B, dtype=torch.int32, device=codes.device)
     if B == 0:
         return path_i, path_j, n
-    lib = _library()
-    with torch.cuda.device(codes.device):
-        err = lib.dp_traceback_launch(
-            codes.data_ptr(), l1.data_ptr(), l2.data_ptr(), bi.data_ptr(), bj.data_ptr(),
-            B, W - 1, D - W + 1, int(local), path_i.data_ptr(), path_j.data_ptr(),
-            n.data_ptr(), torch.cuda.current_stream(codes.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError("dp_traceback launch failed: " + lib.cuda_error_string(err).decode())
+    _build.call("dp_traceback_launch", codes.device, codes.data_ptr(), l1.data_ptr(),
+                l2.data_ptr(), bi.data_ptr(), bj.data_ptr(), B, W - 1, D - W + 1, int(local),
+                path_i.data_ptr(), path_j.data_ptr(), n.data_ptr())
     dp_traceback.launches += 1
     return path_i, path_j, n
 
@@ -94,22 +87,3 @@ def paths_from_arrays(path_i: np.ndarray, path_j: np.ndarray, n: np.ndarray) -> 
                      map(index.__getitem__, path_j[tail].tolist())))  # in pair order
     ends = np.cumsum(n).tolist()
     return [steps[a:b] for a, b in zip([0] + ends[:-1], ends)]
-
-
-_lib = None
-
-
-def _library() -> ctypes.CDLL:
-    """The kernels' shared library, built and bound at first use."""
-    global _lib
-    if _lib is None:
-        from ginfinity_tpu_torch.ops._build import build_library
-
-        lib = ctypes.CDLL(str(build_library()))
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.dp_traceback_launch.argtypes = [p, p, p, p, p, i, i, i, i, p, p, p, p]
-        lib.dp_traceback_launch.restype = i
-        lib.cuda_error_string.argtypes = [i]
-        lib.cuda_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib

@@ -13,9 +13,9 @@ one to the other.  Both read the diagonal states of
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
+
+from ginfinity_tpu_torch.ops import _build
 
 NEG = -1e30
 
@@ -28,10 +28,8 @@ def value_traceback(ST: torch.Tensor, l1: torch.Tensor, l2: torch.Tensor) -> tor
     (a pool merge that outgrew P, reported as an overflow after the run)
     are clamped into them.  Each kernel launch adds one to
     ``value_traceback.launches``."""
-    if ST.device.type == "cpu":
+    if not _build.on_card(ST, "value_traceback"):
         return value_traceback_plain(ST, l1, l2)
-    if ST.device.type != "cuda":
-        raise ValueError(f"value_traceback: unsupported device {ST.device}")
     if ST.dtype != torch.float32 or ST.dim() != 4 or ST.shape[1] != 3 or not ST.is_contiguous():
         raise ValueError("states must be a contiguous float32 [D+1, 3, B, L1+2] tensor, got "
                          f"{ST.dtype} {tuple(ST.shape)}")
@@ -43,14 +41,8 @@ def value_traceback(ST: torch.Tensor, l1: torch.Tensor, l2: torch.Tensor) -> tor
         return ops
     l1 = l1.to(torch.int32).contiguous()
     l2 = l2.to(torch.int32).contiguous()
-    lib = _library()
-    with torch.cuda.device(ST.device):
-        err = lib.value_traceback_launch(
-            ST.data_ptr(), l1.data_ptr(), l2.data_ptr(), B, W - 2, D1 - 1, ops.data_ptr(),
-            torch.cuda.current_stream(ST.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError("value_traceback launch failed: "
-                           + lib.cuda_error_string(err).decode())
+    _build.call("value_traceback_launch", ST.device, ST.data_ptr(), l1.data_ptr(),
+                l2.data_ptr(), B, W - 2, D1 - 1, ops.data_ptr())
     value_traceback.launches += 1
     return ops
 
@@ -80,22 +72,3 @@ def value_traceback_plain(ST: torch.Tensor, l1: torch.Tensor, l2: torch.Tensor) 
         i -= (active & (state != 2)).to(torch.int64)
         j -= (active & (state != 1)).to(torch.int64)
     return ops
-
-
-_lib = None
-
-
-def _library() -> ctypes.CDLL:
-    """The kernels' shared library, built and bound at first use."""
-    global _lib
-    if _lib is None:
-        from ginfinity_tpu_torch.ops._build import build_library
-
-        lib = ctypes.CDLL(str(build_library()))
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.value_traceback_launch.argtypes = [p, p, p, i, i, i, p, p]
-        lib.value_traceback_launch.restype = i
-        lib.cuda_error_string.argtypes = [i]
-        lib.cuda_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib

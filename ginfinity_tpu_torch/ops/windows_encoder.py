@@ -10,9 +10,11 @@ return ``[C, out_dim]``.
 
 :func:`forward_windows_reference` is the plain version (the tensor code
 of the JAX package's aligned XLA path, IEEE float32 sums).
-:func:`forward_windows` runs the hand-written kernel
+:func:`forward_windows` picks the version: for a config inside the
+kernel's gate (:func:`windows_kernel_ok`), the hand-written kernel
 ``csrc/windows_encoder.cu`` on a CUDA tensor and the plain version on a
-CPU tensor; it never falls back from one to the other.  The kernel has
+CPU tensor, never falling back from one to the other; for any other
+config, the plain version as the XLA path computes it.  The kernel has
 one route per ``GINConfig.matmul_precision``, as the TPU kernel has one
 ``precision`` per call:
 
@@ -35,17 +37,16 @@ one route per ``GINConfig.matmul_precision``, as the TPU kernel has one
 
 from __future__ import annotations
 
-import ctypes
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 
 from ginfinity_tpu_torch.graphs.build import window_edge_const_rows
 from ginfinity_tpu_torch.models.gine import GINConfig, _dense, apply_node_norm, bf16_round
+from ginfinity_tpu_torch.ops import _build
 
 _LAYER_META = 8  # per layer: w0, w1, b0, b1, eb, gn offsets; din; dout
 _NORM_MODES = {"none": 0, "l2": 1, "zscore": 2, "zscore_l2": 3}
-_MAX_SMEM = 232448  # bytes of shared memory one CTA may use on Hopper
 # the kernel's tiling (csrc/windows_encoder.cu): a weight stage holds
 # TILE_N output columns by TILE_K inputs (3xTF32) or TILE_K_BF16 inputs
 # (bf16; the same 16 KB), its plane rows PLANE_PAD floats of padding
@@ -270,51 +271,29 @@ def forward_windows_reference(config: GINConfig, params: dict, state: dict,
     return _dense(pooled, params["fc"], prec)
 
 
-_lib = None
-
-
-def _library() -> ctypes.CDLL:
-    """The kernels' shared library, built and bound at first use."""
-    global _lib
-    if _lib is None:
-        from ginfinity_tpu_torch.ops._build import build_library
-
-        lib = ctypes.CDLL(str(build_library()))
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.windows_encoder_launch.argtypes = (
-            [p] * 10 + [i] * 9 + [ctypes.c_float, p]
-        )
-        lib.windows_encoder_launch.restype = i
-        lib.windows_encoder_smem_bytes.argtypes = [i, i]
-        lib.windows_encoder_smem_bytes.restype = ctypes.c_size_t
-        lib.windows_encoder_smem_rows.argtypes = [i, i]
-        lib.windows_encoder_smem_rows.restype = i
-        lib.cuda_error_string.argtypes = [i]
-        lib.cuda_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
-
-
 def forward_windows(config: GINConfig, params: dict, state: dict,
                     x0: torch.Tensor, j_local: torch.Tensor,
                     bp_in: torch.Tensor, pulled: torch.Tensor,
-                    fwd_into_w: torch.Tensor, fwd_into_p: torch.Tensor,
-                    L: int, packed: PackedParams | None = None) -> torch.Tensor:
-    """The window encoder: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors.  Arguments as
-    :func:`forward_windows_reference`; ``packed`` is
-    :func:`pack_params`'s result, made here when not given.  The kernel's
-    route is the config's ``matmul_precision``.  Each kernel launch adds
-    one to ``forward_windows.launches``, and each launch of the bf16 route
-    also one to ``forward_windows.bf16_launches``."""
-    if x0.device.type == "cpu":
-        return forward_windows_reference(config, params, state, x0, j_local, bp_in,
-                                         pulled, fwd_into_w, fwd_into_p, L)
-    if x0.device.type != "cuda":
-        raise ValueError(f"forward_windows: unsupported device {x0.device}")
+                    fwd_into_w: torch.Tensor, fwd_into_p: torch.Tensor, L: int,
+                    packed: PackedParams | Callable[[], PackedParams] | None = None
+                    ) -> torch.Tensor:
+    """The window encoder, and the one place that picks the kernel or the
+    plain version.  A config outside the kernel's gate
+    (:func:`windows_kernel_ok`) takes the plain version as the JAX
+    package's XLA path computes it (``exact_gather=True``), on any device;
+    inside the gate a CPU tensor takes the plain version as the kernel
+    computes it, and a CUDA tensor the kernel, on the route of the config's
+    ``matmul_precision``.  Arguments as :func:`forward_windows_reference`;
+    ``packed`` is :func:`pack_params`'s result or a function that returns
+    it (``GINModel.packed_windows``), read only on the kernel's route and
+    made there when not given.  Each kernel launch adds one to
+    ``forward_windows.launches``, and each launch of the bf16 route also
+    one to ``forward_windows.bf16_launches``."""
+    args = (config, params, state, x0, j_local, bp_in, pulled, fwd_into_w, fwd_into_p, L)
     if not windows_kernel_ok(config):
-        raise ValueError("forward_windows: config outside the kernel's gate "
-                         "(windows_kernel_ok); use forward_windows_reference")
+        return forward_windows_reference(*args, exact_gather=True)
+    if not _build.on_card(x0, "forward_windows"):
+        return forward_windows_reference(*args)
     dims = layer_dims(config)
     C, h0 = x0.shape[0], dims[0][0]
     if x0.dtype != torch.float32 or tuple(x0.shape) != (C, 2 * L, h0):
@@ -334,17 +313,18 @@ def forward_windows(config: GINConfig, params: dict, state: dict,
             raise ValueError(f"window flags must be [{C}, {L}], got {tuple(t.shape)}")
     if packed is None:
         packed = pack_params(config, params, state)
+    elif callable(packed):
+        packed = packed()
     if packed.flat.device != x0.device:
         raise ValueError("packed parameters lie on another device than x0")
     if packed.precision != config.matmul_precision:
         raise ValueError(f"parameters packed for precision {packed.precision!r}, the config "
                          f"asks for {config.matmul_precision!r}")
-    lib = _library()
     mw = packed.max_width
-    smem = lib.windows_encoder_smem_bytes(L, mw)
-    if smem > _MAX_SMEM:
+    smem = _build.library().windows_encoder_smem_bytes(L, mw)
+    if smem > _build.HOPPER_SMEM_OPTIN:
         raise ValueError(f"window length {L} needs {smem} bytes of shared memory "
-                         f"per CTA; the card offers {_MAX_SMEM}")
+                         f"per CTA; the card offers {_build.HOPPER_SMEM_OPTIN}")
     out = torch.empty((C, config.output_dim), dtype=torch.float32, device=x0.device)
     if C == 0:
         return out
@@ -352,20 +332,15 @@ def forward_windows(config: GINConfig, params: dict, state: dict,
     workspace = torch.empty((C, 4, 2 * L, mw + PLANE_PAD), dtype=torch.float32,
                             device=x0.device)
     norm = config.node_embed_norm if config.normalize_nodes_before_pool else "none"
-    with torch.cuda.device(x0.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.windows_encoder_launch(
-            x0.data_ptr(), j_local.data_ptr(), bp_in.data_ptr(), pulled.data_ptr(),
-            fwd_into_w.data_ptr(), fwd_into_p.data_ptr(), packed.flat.data_ptr(),
-            packed.meta.data_ptr(), workspace.data_ptr(), out.data_ptr(),
-            C, L, len(dims), mw, config.output_dim,
-            int(config.pooling_type == "global_mean_pool"), _NORM_MODES[norm],
-            int(config.use_residual), ROUTES[config.matmul_precision], float(config.eps),
-            stream,
-        )
-    if err != 0:
-        raise RuntimeError("windows_encoder launch failed: "
-                           + lib.cuda_error_string(err).decode())
+    _build.call(
+        "windows_encoder_launch", x0.device,
+        x0.data_ptr(), j_local.data_ptr(), bp_in.data_ptr(), pulled.data_ptr(),
+        fwd_into_w.data_ptr(), fwd_into_p.data_ptr(), packed.flat.data_ptr(),
+        packed.meta.data_ptr(), workspace.data_ptr(), out.data_ptr(),
+        C, L, len(dims), mw, config.output_dim,
+        int(config.pooling_type == "global_mean_pool"), _NORM_MODES[norm],
+        int(config.use_residual), ROUTES[config.matmul_precision], float(config.eps),
+    )
     forward_windows.launches += 1
     forward_windows.bf16_launches += config.matmul_precision == "bf16"
     return out

@@ -14,9 +14,9 @@ slot ``i < L`` holds position ``start + i`` and slot ``L + i`` holds
 position ``i``'s pulled outside partner (masked when absent).  Backbone
 and pulled-partner messages are shifts, in-window base-pair messages a
 row gather, and the edge-attr embeddings constant rows.  The encoder of
-a chunk is :func:`ginfinity_tpu_torch.ops.windows_encoder.forward_windows`
-(the CUDA kernel on the card) for the configs its gate covers, and the
-plain torch encoder for the other dense configs.
+a chunk is :func:`ginfinity_tpu_torch.ops.windows_encoder.forward_windows`,
+which picks the CUDA kernel on the card for the configs its gate covers,
+and the plain torch encoder for the other dense configs.
 
 Configs outside the dense forward (batch, layer or instance norm,
 Set2Set, edges neither 4 nor 7 wide) take the compact path: each chunk
@@ -43,11 +43,7 @@ from ginfinity_tpu_torch.graphs.batching import GraphBatch, _round_capacity
 from ginfinity_tpu_torch.graphs.build import window_node_features
 from ginfinity_tpu_torch.graphs.dotbracket import pair_table
 from ginfinity_tpu_torch.models.gine import GINConfig, GINModel, _dense, forward_once
-from ginfinity_tpu_torch.ops.windows_encoder import (
-    forward_windows,
-    forward_windows_reference,
-    windows_kernel_ok,
-)
+from ginfinity_tpu_torch.ops.windows_encoder import forward_windows
 from ginfinity_tpu_torch.pipelines.windows import window_starts_mask
 from ginfinity_tpu_torch.parallel.mesh import DataMesh
 from ginfinity_tpu_torch.utils import trace
@@ -128,25 +124,16 @@ def _forward_windows_aligned(config: GINConfig, params: dict, state: dict,
                              feats_all: torch.Tensor, pts_all: torch.Tensor,
                              si: torch.Tensor, st: torch.Tensor, L: int,
                              keep_paired_neighbors: bool = True, views=None,
-                             use_kernel: bool | None = None, packed=None) -> torch.Tensor:
-    """Fused build + GINE forward of a chunk of windows: ``[C, out_dim]``.
-
-    ``use_kernel=None`` takes the window encoder (the CUDA kernel for
-    CUDA tensors) exactly for the configs its gate covers; the others,
-    and ``use_kernel=False``, take the plain torch encoder as the JAX
-    package's XLA path computes it (partner rows gathered exactly, also
-    at bf16)."""
+                             packed=None) -> torch.Tensor:
+    """Fused build + GINE forward of a chunk of windows: ``[C, out_dim]``,
+    the encoder being :func:`forward_windows` (which picks the kernel or
+    the plain version; ``packed`` as it takes it)."""
     dev = feats_all.device
     with trace.span("windows.build", device=dev):
         x0, flags = _window_chunk(config, params, feats_all, pts_all, si, st, L,
                                   keep_paired_neighbors, views)
-    if use_kernel is None:
-        use_kernel = windows_kernel_ok(config)
     with trace.span("windows.encoder", device=dev):
-        if use_kernel:
-            return forward_windows(config, params, state, x0, *flags, L, packed=packed)
-        return forward_windows_reference(config, params, state, x0, *flags, L,
-                                         exact_gather=True)
+        return forward_windows(config, params, state, x0, *flags, L, packed=packed)
 
 
 def _window_slot_counts(pt: np.ndarray, L: int, starts: np.ndarray,
@@ -352,8 +339,7 @@ def _replicas(model: GINModel, mesh) -> tuple:
 
 
 def _embed_group(model: GINModel, per, n_cap: int, idxs, L: int,
-                 keep_paired_neighbors: bool, use_kernel: bool | None = None,
-                 on=None) -> torch.Tensor:
+                 keep_paired_neighbors: bool, on=None) -> torch.Tensor:
     """Every window of one ladder group: ``[n_windows, out_dim]`` in
     descriptor order, on the model's device.  ``on``: ``_replicas``'s
     ``(mesh, replicas)`` to shard the chunks over (by default the model's
@@ -363,16 +349,14 @@ def _embed_group(model: GINModel, per, n_cap: int, idxs, L: int,
     with trace.span("windows.pack"):
         host = _group_host(cfg, per, n_cap, idxs)
     n_real, chunk = host[2].shape[0], _chunk_for(host[4])
-    kernel = use_kernel if use_kernel is not None else windows_kernel_ok(cfg)
 
     def runner(m: GINModel, arrays):
         feats_d, pts_d, si, st = arrays
         views = (feats_d.unfold(1, L, 1), pts_d.unfold(1, L, 1))
         params, state = m.params, m.state
-        packed = m.packed_windows() if kernel and m.device.type == "cuda" else None
         return lambda c0, c1: _forward_windows_aligned(
             cfg, params, state, feats_d, pts_d, si[c0:c1], st[c0:c1], L,
-            keep_paired_neighbors, views, kernel, packed)
+            keep_paired_neighbors, views, m.packed_windows)
 
     bounds = [(c0, min(n_real, c0 + chunk)) for c0 in range(0, n_real, chunk)]
     return _run_chunks(*(on or _replicas(model, None)), host, bounds, runner)

@@ -48,6 +48,9 @@ VARIANTS = {
     "no_weight_loads": NO_LOADS,
     "no_weight_loads_no_wgmma": NO_LOADS + NO_WGMMA,
 }
+# the loader's entry points that windows_encoder.cu defines
+ENTRY_POINTS = [n for n in _build.ENTRY_POINTS
+                if n.startswith("windows_encoder_") or n == "cuda_error_string"]
 PHASES = ["setup"] + [f"{k}{i}" for i in range(6) for k in ("products", "graphnorm")] + ["tail"]
 
 
@@ -73,16 +76,9 @@ def build(tmp: str) -> dict:
         out, _ = p.communicate()
         if p.returncode != 0:
             raise RuntimeError(f"nvcc failed on variant {name}:\n{out}")
-        lib = ctypes.CDLL(os.path.join(tmp, f"lib{name}.so"))
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.windows_encoder_launch.argtypes = [ptr] * 10 + [i32] * 9 + [ctypes.c_float, ptr]
-        lib.windows_encoder_launch.restype = i32
-        lib.windows_encoder_smem_bytes.argtypes = [i32, i32]
-        lib.windows_encoder_smem_bytes.restype = ctypes.c_size_t
-        lib.cuda_error_string.argtypes = [i32]
-        lib.cuda_error_string.restype = ctypes.c_char_p
-        lib.windows_encoder_stamps.argtypes = [ptr, i32]
-        lib.windows_encoder_stamps.restype = i32
+        lib = _build.bind(os.path.join(tmp, f"lib{name}.so"), ENTRY_POINTS)
+        lib.windows_encoder_stamps.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        lib.windows_encoder_stamps.restype = ctypes.c_int
         libs[name] = (lib, [ln.strip() for ln in out.splitlines()
                             if "registers" in ln or "spill" in ln or "C75" in ln])
     return libs
@@ -108,15 +104,14 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         libs = build(tmp)
         for name, (lib, ptxas) in libs.items():
-            we._lib = lib
+            _build._lib = lib  # forward_windows launches through the loader's handle
             run = lambda: we.forward_windows(cfg, p, s, x0, *flags, cs.WINDOW, packed=packed)
             run()  # the library's first launch loads its module: stamp a later one
             got = run()
             torch.cuda.synchronize()
             stamps = (ctypes.c_ulonglong * (C * STAMPS))()
             err = lib.windows_encoder_stamps(ctypes.cast(stamps, ctypes.c_void_p), C * STAMPS)
-            if err:
-                raise RuntimeError(lib.cuda_error_string(err).decode())
+            _build.check(err, "windows_encoder_stamps")
             a = np.array(stamps, dtype=np.float64).reshape(C, STAMPS)
             d = np.diff(a[:, [0, 1] + list(range(2, 14)) + [15]], axis=1) / 1e3
             print(json.dumps({
@@ -125,7 +120,7 @@ def main() -> int:
                 "phase_us_mean": dict(zip(PHASES, d.mean(0).round(3).tolist())),
                 "window_us_max": float((a[:, 15] - a[:, 0]).max() / 1e3),
                 "ptxas": ptxas}), flush=True)
-        we._lib = None
+        _build._lib = None
     return 0
 
 

@@ -29,6 +29,7 @@ from ginfinity_tpu.ops.dp import _traceback_global, _traceback_local
 from ginfinity_tpu.ops.dp import affine_align_batch as jalign
 from ginfinity_tpu.ops.pallas_dp import align_batch_pallas
 from ginfinity_tpu_torch.ops import dp
+from ginfinity_tpu_torch.ops import dp_wavefront as k2
 from ginfinity_tpu_torch.ops.dp_wavefront import dp_wavefront, rectangle_mask, route
 
 TOL = 1e-4
@@ -251,9 +252,9 @@ def test_affine_align_single_pair_and_bad_mode():
 
 @pytest.mark.parametrize("L1, ok", [(1, True), (384, True), (8287, True), (8288, False)])
 def test_kernel_gate(L1, ok):
-    assert dp.dp_kernel_ok(L1, 500, "global") is ok
-    assert dp.dp_kernel_ok(L1, 500, "local") is ok
-    assert not dp.dp_kernel_ok(L1, 500, "semiglobal")
+    assert k2.dp_kernel_ok(L1, 500, "global") is ok
+    assert k2.dp_kernel_ok(L1, 500, "local") is ok
+    assert not k2.dp_kernel_ok(L1, 500, "semiglobal")
 
 
 def _plain(mats, gaps, mode):
@@ -262,7 +263,7 @@ def _plain(mats, gaps, mode):
     import torch
 
     scores, l1, l2 = dp.pad_batch(mats)
-    out = dp.wavefront_plain(torch.from_numpy(scores), torch.from_numpy(l1),
+    out = k2.wavefront_plain(torch.from_numpy(scores), torch.from_numpy(l1),
                              torch.from_numpy(l2), *gaps, mode)
     return scores, [x.numpy() for x in out], l1, l2
 
@@ -288,7 +289,7 @@ def test_traceback_reads_only_real_rectangle(mode):
 def _warp_cell(hup, eup, hdiag, hleft, fleft, s, i, j, valid, on_bound, go, ge, local):
     """``dp_cell`` of ``csrc/dp_wavefront.cu`` over arrays of cells, float32."""
     f32 = np.float32
-    neg = f32(dp.NEG)
+    neg = f32(k2.NEG)
     e_from_h, e_from_e = hup + go, eup + ge
     te = e_from_h < e_from_e
     E = np.where(te, e_from_e, e_from_h)
@@ -337,7 +338,7 @@ def _warp_model(scores, l1, l2, go, ge, mode, R, junk=np.nan):
     B, L1, L2 = scores.shape
     assert R % 2 == 0 and 32 * R >= L1 + 1
     f32 = np.float32
-    neg = f32(dp.NEG)
+    neg = f32(k2.NEG)
     go, ge = f32(go), f32(ge)
     rows = np.arange(32)[:, None] * R + np.arange(R)[None, :]
     codes = np.full((B, L1 + L2, L1 + 1), 0xFF, np.uint8)

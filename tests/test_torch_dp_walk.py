@@ -28,6 +28,7 @@ import torch
 
 from ginfinity_tpu_torch.ops import dp
 from ginfinity_tpu_torch.ops.dp_traceback import dp_traceback, paths_from_arrays
+from ginfinity_tpu_torch.ops.dp_wavefront import wavefront_plain
 from ginfinity_tpu_torch.parallel.mesh import DataMesh
 from ginfinity_tpu_torch.utils import trace
 
@@ -97,7 +98,7 @@ def test_align_batch_on_cpu_meshes_equals_padded_walk(mode, shards):
     for seed, n_pairs, hi in [(40, 9, 45), (41, 4, 12), (42, 1, 30), (43, 11, 25)]:
         mats = _ragged(seed, n_pairs, hi=hi)
         scores, l1, l2 = dp.pad_batch(mats)
-        best, bi, bj, codes = (t.numpy() for t in dp.wavefront_plain(
+        best, bi, bj, codes = (t.numpy() for t in wavefront_plain(
             torch.from_numpy(scores), torch.from_numpy(l1), torch.from_numpy(l2), -1.5, -0.3,
             mode))
         want = list(zip(best.tolist(), dp.paths_from_codes(codes, l1, l2, bi, bj, mode)))
@@ -243,7 +244,7 @@ def test_kernel_model_on_wavefront_codes(mode, gaps, integer):
     mats = _ragged(5 + integer, 9, lo=1, hi=35, integer=integer)
     mats += [np.full((6, 8), -2.0, np.float32), -np.abs(_ragged(9, 1)[0])]
     scores, l1, l2 = dp.pad_batch(mats)
-    best, bi, bj, codes = (t.numpy() for t in dp.wavefront_plain(
+    best, bi, bj, codes = (t.numpy() for t in wavefront_plain(
         torch.from_numpy(scores), torch.from_numpy(l1), torch.from_numpy(l2), *gaps, mode))
     want = dp.paths_from_codes(codes, l1, l2, bi, bj, mode)
     if mode == "local":

@@ -152,18 +152,20 @@ subprocess.Popen.__init__ = refuse
 subprocess.run = refuse
 from ginfinity_tpu_torch.utils import native
 from ginfinity_tpu_torch.ops import library_pool, profile_pool, value_traceback, pairhmm
-from ginfinity_tpu_torch.pipelines import msa, node_embed
+from ginfinity_tpu_torch.ops import contrastive_loss, dp, dp_traceback, dp_wavefront
+from ginfinity_tpu_torch.ops import windows_encoder, _build
+from ginfinity_tpu_torch.pipelines import msa, node_embed, fast_windows
 from ginfinity_tpu_torch.graphs import dotbracket
-assert native._lib is None and value_traceback._lib is None
+assert native._lib is None and _build._lib is None
 assert not profile_pool.check_no_sync and profile_pool.guarded_loops == 0
 print("ok")
 """
 
 
 def test_pool_and_native_modules_build_nothing_on_import():
-    """The native parser, the traceback kernel and the pools build at first
+    """The native parser, the kernel library and the pools build at first
     use, never on import: every process creation is refused while the
-    modules are imported."""
+    modules are imported, and the one loader of the kernels is unbound."""
     res = subprocess.run([sys.executable, "-c", _BUILD_ON_IMPORT], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
