@@ -114,7 +114,15 @@ and windows/s with the CLIs' host stages, K1's launches, and the largest
 difference of the card's embeddings from the port's CPU run on the same
 inputs (and, for the two-step flow, from the fused window TSV).
 ``kernel_vs_plain`` also holds K1's bf16 route to the plain version at
-bf16 (the same four rounding points) for each case, and ``bf16_path``
+bf16 (the same four rounding points) for each case.
+``staged_kernel_vs_plain`` holds K1's staged route (no plane in shared
+memory: A copied through a ring in shared memory) to the plain version,
+with every launch required to take it: a 128-window chunk of the
+``windows-long`` cell's first request at forgi-4x512's widths and
+weights on both routes within the cell's ``emb_gap`` bar, timed beside
+its bound and the plain version (the ``windows_encoder_staged`` entries
+of the ``kernels`` line), and the flagship at L 200, where its X plane
+no longer fits in shared memory.  ``bf16_path``
 prints windows/s and structures/s at bf16 with each window's and each
 structure's cosine against the f32 run, the CLI's own ``[bf16-check]``
 numbers and the trace's busy share.  ``msa_path`` prints each mode's
@@ -167,6 +175,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 import torch
@@ -263,6 +272,7 @@ from ginfinity_tpu_torch.training.train import (
 from ginfinity_tpu_torch.utils.device import disable_tf32
 from ginfinity_tpu_torch.utils import native, trace
 from ginfinity_tpu_torch.utils.io import read_table, write_tsv
+from portbench.kinds import windows as windows_kind
 
 WINDOW = 120
 N_WINDOWS = 23_000         # the size of the bench corpus at L = 120
@@ -288,6 +298,12 @@ BF16_CHECK = 512           # --bf16-check sample of the bf16 window run
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate
 SEED = 0
 DEVICE = torch.device("cuda", 0)
+HERE = os.path.dirname(os.path.abspath(__file__))
+FORGI_CONFIG = os.path.join(HERE, "portbench", "configs", "forgi-4x512.json")
+WINDOWS_TRAFFIC = os.path.join(HERE, "portbench", "traffic", "windows-long.json")
+EMB_GAP = 3e-4             # the windows cell's bar on an embedding entry
+STAGED_CHUNK = 128         # windows of a main-path chunk of the cell's long groups
+STAGED_128_L = 200         # a window length at which a 128-wide X plane leaves shared memory
 DP_GAPS = ((-1.0, -1.0), (-2.0, -0.5), (-10.0, -0.5), (-1.5, -0.3))
 DP_TOL = 1e-4              # |score| kernel vs plain version (0 expected)
 DP_OPS_PER_CELL = 10       # float32 adds and compares per DP cell
@@ -419,6 +435,21 @@ def chunk_inputs(cfg, params, structures, L, dev, C=None):
     si = torch.from_numpy(sidx[sel]).to(dev, torch.int64)
     st = torch.from_numpy(starts[sel]).to(dev, torch.int64)
     return _window_chunk(cfg, params, feats_d, pts_d, si, st, L, True)
+
+
+def windows_cell(config_path: str, dev, seed: int = 0):
+    """The ``windows-long`` cell's model under a benchmark configuration
+    (weights drawn as the cell draws them for ``seed``), the transcripts
+    of its first request, and its window length: the cell's own set-up
+    (``portbench/kinds/windows.py::setup``), without its warm-up calls."""
+    with open(config_path) as f:
+        md = json.load(f)
+    with open(WINDOWS_TRAFFIC) as f:
+        t = json.load(f)
+    env = types.SimpleNamespace(traffic={**t, "warmup_calls": 0}, config=md, seed=seed,
+                                device=dev, stage=lambda name: contextlib.nullcontext())
+    S = windows_kind.setup(env)
+    return S.model, S.pool[:t["per_call"]], S.L
 
 
 def plain_windows(model, per, n_cap: int, idxs, L: int) -> torch.Tensor:
@@ -613,19 +644,77 @@ def dp_bounds(l1: np.ndarray, l2: np.ndarray) -> tuple[float, str, float]:
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes
 
 
+def staged_kernel_vs_plain(dev) -> dict:
+    """K1's staged route against the plain version, with the launch
+    counters zeroed first: each of the four checked launches must take
+    the route.  (a) A ``STAGED_CHUNK``-window chunk of the windows cell's
+    first request at forgi-4x512's widths and weights (``windows_cell``),
+    on the 3xTF32 and the bf16 route, each within the cell's ``EMB_GAP``
+    of the plain version at its precision; then its time, the plain
+    version's and its bound.  (b) The flagship 6 x 128 at L
+    ``STAGED_128_L``, where its X plane no longer fits in shared memory
+    and one output tile's product writes the plane it reads, within
+    ``TOL`` and ``BF16_TOL``."""
+    forward_windows.launches = forward_windows.bf16_launches = 0
+    forward_windows.staged_launches = 0
+    model, structures, L = windows_cell(FORGI_CONFIG, dev)
+    flag_cfg = GINConfig.create(**FLAGSHIP)
+    flag = GINModel(flag_cfg, *seeded_model(flag_cfg, SEED + 1)).to(dev)
+    flag_structs = corpus(np.random.default_rng(SEED + 41), 2000, STAGED_128_L)
+    out, timed = {"forgi": {"L": L}, "flagship": {"L": STAGED_128_L}}, []
+    for key, m, structs, n, win, tols in (
+            ("forgi", model, structures, STAGED_CHUNK, L, (EMB_GAP, EMB_GAP)),
+            ("flagship", flag, flag_structs, 64, STAGED_128_L, (TOL, BF16_TOL))):
+        p, s = m.params, m.state
+        for prec, tol in zip(("highest", "bf16"), tols):
+            cfg = m.config.with_precision(prec)
+            x0, flags = chunk_inputs(cfg, p, structs, win, dev, C=n)
+            packed = pack_params(cfg, p, s)
+            got = forward_windows(cfg, p, s, x0, *flags, win, packed=packed)
+            ref = forward_windows_reference(cfg, p, s, x0, *flags, win)
+            torch.cuda.synchronize()
+            err = (got - ref).abs().max().item()
+            rows = win + flags[2].sum(dim=1)
+            out[key][prec] = dict(windows=x0.shape[0], max_abs_err=err,
+                                  active_rows_mean=rows.float().mean().item(),
+                                  active_rows_max=int(rows.max().item()))
+            if not (err <= tol and torch.isfinite(got).all()):
+                raise AssertionError(f"staged route, {key} at L {win} ({prec}): max abs {err} "
+                                     f"> {tol}")
+            if key == "forgi":
+                timed.append((prec, cfg, p, s, x0, flags, packed))
+    out.update(launches=forward_windows.launches, bf16_launches=forward_windows.bf16_launches,
+               staged_launches=forward_windows.staged_launches)
+    if (forward_windows.launches, forward_windows.bf16_launches,
+            forward_windows.staged_launches) != (4, 2, 4):
+        raise AssertionError(f"{forward_windows.staged_launches} of {forward_windows.launches} "
+                             f"launches ({forward_windows.bf16_launches} bf16) took the staged "
+                             "route; want 4 of 4 (2 bf16)")
+    for prec, cfg, p, s, x0, flags, packed in timed:
+        rate = TF32X3_FLOPS if prec == "highest" else BF16_FLOPS
+        ms = cuda_ms(lambda: forward_windows(cfg, p, s, x0, *flags, L, packed=packed), 20)
+        plain_ms = cuda_ms(lambda: forward_windows_reference(cfg, p, s, x0, *flags, L), 5)
+        bound_ms, bound_by, _ = encoder_bound_ms(cfg, x0, flags, packed, L, rate)
+        out["forgi"][prec].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                  bound_by=bound_by, share_of_bound=bound_ms / ms)
+    return out
+
+
 def ptxas_summary(log: str) -> dict:
     """ptxas's registers, stack and spills of every kernel in ``build.log``,
     by kernel; the warp route's instantiations as ``dp_warp_kernel<R,
-    global|local>``, K1's routes as ``windows_encoder_kernel<3xtf32|bf16>``."""
+    global|local>``, K1's routes as ``windows_encoder_kernel<3xtf32|bf16>``
+    and, staged, ``windows_encoder_kernel<3xtf32|bf16, staged>``."""
     out = {}
     for name, props, used in re.findall(
             r"Function properties for (\S+)\n\s*(.*)\nptxas info\s*: (Used .*)", log):
-        m = re.search(r"(\w+_kernel)(?:ILi(\d+)ELb([01])E|ILb([01])E)?E", name)
+        m = re.search(r"(\w+_kernel)(?:ILi(\d+)ELb([01])E|ILb([01])E(?:Lb([01])E)?)?E", name)
         short = re.sub(r"^.*\d", "", m.group(1)) if m else name
         if m and m.group(2):
             short += f"<{m.group(2)}, {'local' if m.group(3) == '1' else 'global'}>"
         elif m and m.group(4):
-            short += "<bf16>" if m.group(4) == "1" else "<3xtf32>"
+            short += ("<bf16" if m.group(4) == "1" else "<3xtf32") + (
+                ", staged>" if m.group(5) == "1" else ">")
         out[short] = f"{used.strip()}; {props.strip()}"
     return out
 
@@ -3101,6 +3190,11 @@ def run_phases(work: str) -> int:
                 raise AssertionError(f"kernel vs plain {name} (bf16): max abs {err} > "
                                      f"{BF16_TOL} or a cosine {cos.min().item()} < {BF16_COS}")
 
+    with phase("staged_kernel_vs_plain", {"emb_gap": EMB_GAP, "tolerance": TOL,
+                                          "bf16_tolerance": BF16_TOL}) as rec:
+        rec.update(staged_kernel_vs_plain(dev))
+        staged = rec
+
     dp_errs = []
     with phase("dp_kernel_vs_plain", {"tolerance": DP_TOL}) as rec:
         limit = smem_limit(dev)
@@ -3485,7 +3579,22 @@ def run_phases(work: str) -> int:
         "bound_ms": k1_bf16["bound_ms"],
         "bound_by": k1_bf16["bound_by"],
         "library_ms": None,
-    }, {
+    }] + [{
+        "name": "windows_encoder_staged" + ("" if prec == "highest" else "_bf16"),
+        "route": "cuda",
+        "precision": prec,
+        "config": "forgi-4x512",
+        "source": "ginfinity_tpu_torch/ops/csrc/windows_encoder.cu",
+        "replaces": "ginfinity_tpu/ops/pallas_windows.py:84",
+        "launches": (staged["bf16_launches"] if prec == "bf16"
+                     else staged["launches"] - staged["bf16_launches"]),
+        "max_abs_err": staged["forgi"][prec]["max_abs_err"],
+        "ms": staged["forgi"][prec]["ms"],
+        "plain_ms": staged["forgi"][prec]["plain_ms"],
+        "bound_ms": staged["forgi"][prec]["bound_ms"],
+        "bound_by": staged["forgi"][prec]["bound_by"],
+        "library_ms": None,
+    } for prec in ("highest", "bf16")] + [{
         "name": "dp_wavefront",
         "route": "cuda",
         "design": "warp-per-pair",

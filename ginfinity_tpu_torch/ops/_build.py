@@ -40,8 +40,9 @@ _P, _I, _F, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
 ENTRY_POINTS = {
     "cuda_error_string": (ctypes.c_char_p, [_I]),
     "windows_encoder_launch": (_I, [_P] * 10 + [_I] * 9 + [_F, _P]),
-    "windows_encoder_smem_bytes": (ctypes.c_size_t, [_I, _I]),
+    "windows_encoder_smem_bytes": (ctypes.c_size_t, [_I, _I, _I]),
     "windows_encoder_smem_rows": (_I, [_I, _I]),
+    "windows_encoder_staged": (_I, [_I, _I, _I]),
     "dp_wavefront_launch": (_I, [_P, _P, _P, _I, _I, _I, _F, _F, _I, _P, _P, _P, _P, _P]),
     "dp_wavefront_warp_launch": (_I, [_P, _P, _P, _I, _I, _I, _F, _F, _I, _I,
                                       _P, _P, _P, _P, _P]),

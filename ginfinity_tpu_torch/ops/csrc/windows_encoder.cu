@@ -44,6 +44,16 @@
 //    128, point at the window's slice of a global workspace, chosen per
 //    window inside the kernel from its row count: the same code, generic
 //    loads and stores.
+//  * When no plane fits (every model wider than 128: the staged route,
+//    kStaged), the products' A operand reaches the tensor cores through a
+//    ring in shared memory: each warp copies its 16 rows of every stage's
+//    A block from the workspace with 16-byte cp.async a stage ahead (two
+//    slots; at width 512 up to eight ran no faster), and builds its
+//    fragments from there.  Built from scalar loads of the workspace, as
+//    the shared-memory route builds them from its planes, they kept each
+//    stage waiting on global memory: at 256-512 about a quarter of K1.
+//    A window too long for the ring beside the rest (windows_encoder_staged)
+//    still reads A from the workspace that way.
 //  * Products: wgmma m64n128k8 tf32, A from registers, B (the weights) from
 //    shared memory; each warpgroup owns a 64-row tile of the window.  The
 //    messages (1 + eps) x + agg of a tile's rows are built once per layer,
@@ -80,6 +90,8 @@ constexpr int BN = 128;                      // columns of a wgmma tile
 constexpr int BK = 16;                       // depth of one weight stage (3xTF32)
 constexpr int BK_BF16 = 64;                  // depth of one weight stage (bf16)
 constexpr int kStages = 3;
+constexpr int kASlots = 2;                   // A ring slots (staged route)
+constexpr int kRowsPerWarp = 16;             // rows of a tile each warp's fragments hold
 constexpr int kPartFloats = BN * BK;         // one of hi / lo: 8 KB
 constexpr int kStageFloats = 2 * kPartFloats;
 constexpr uint32_t kStageBytes = 4u * kStageFloats;
@@ -143,6 +155,24 @@ __device__ __forceinline__ void bulk_load(float* dst, const float* src, uint32_t
       "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
       "l"(src), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
+}
+
+// 16 bytes from global to shared memory, asynchronously; `bytes` of them
+// are read (16 or 0), the rest zero-filled
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, uint32_t bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// Waits until at most N of this thread's copy groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
 // named barrier 2 + g: the 128 threads of warpgroup g
@@ -357,16 +387,100 @@ struct Tile {
   int r[2];   // this thread's two rows in it (groupID, groupID + 8)
 };
 
+// A products' A operand read straight from a plane (in shared memory, or
+// in the workspace): this thread's row q of the tile at column c, 0 past
+// the window's rows.  Nothing to wait for or refill.
+struct PlaneA {
+  const float* P;
+  int ld, r0, r1;
+  bool live0, live1;
+  __device__ __forceinline__ float operator()(int q, int c) const {
+    return (q ? live1 : live0) ? P[(size_t)(q ? r1 : r0) * ld + c] : 0.f;
+  }
+  __device__ __forceinline__ void wait() const {}
+  __device__ __forceinline__ void refill(int) {}
+};
+
+// The staged route's A operand, one warp's share: its 16 rows of each
+// stage's A block ([16, depth] of a plane; depth BK, or BK_BF16 on the
+// bf16 route) copied from the workspace into a ring of kASlots slots in
+// shared memory, kASlots stages ahead of the stage being multiplied.  A
+// stage's copies are one cp.async group; the slot just read takes the
+// stage kASlots further on.  A product's stages run over every 128-column
+// tile of its output (the same A columns again for each), so the copies
+// run on across tiles; the next product starts a new run.  Rows past the
+// window's are zero-filled.  The 16-byte chunks of a row are swizzled by
+// the row so that a fragment read hits 32 distinct banks.
+template <bool kBf16>
+struct AStager {
+  static constexpr int kDepth = kBf16 ? BK_BF16 : BK;
+  static constexpr int kChunks = kDepth / 4;  // 16-byte chunks in a row of a stage
+  float* ring;             // this warp's slots: [kASlots][kRowsPerWarp][kDepth]
+  int g;                   // this thread's row in the warp's 16 (groupID)
+  int ld, row0, n_live;    // plane stride; the warp's first row; of its rows, those < n_rows
+  const float* plane;      // the product's A
+  int kdim, left, k_next;  // its depth; stages still to copy; column of the next
+  int slot;                // slot of the stage being read
+
+  __device__ __forceinline__ static int swizzle(int row) {
+    return kBf16 ? 2 * (row & 3) : (row >> 1) & 3;
+  }
+  // copies the next stage, if one is left, into slot s: one group always
+  __device__ __forceinline__ void issue(int s, int lane) {
+    if (left > 0) {
+      float* dst = ring + s * kRowsPerWarp * kDepth;
+#pragma unroll
+      for (int i = 0; i < kRowsPerWarp * kChunks / 32; ++i) {
+        const int e = lane + 32 * i, row = e / kChunks, ch = e % kChunks;
+        const bool live = row < n_live;
+        const float* src = live ? plane + (size_t)(row0 + row) * ld + k_next + 4 * ch : plane;
+        cp_async16(dst + row * kDepth + 4 * (ch ^ swizzle(row)), src, live ? 16 : 0);
+      }
+      --left;
+      k_next = k_next + kDepth == kdim ? 0 : k_next + kDepth;
+    }
+    cp_async_commit();
+  }
+  // the product of A = P[rows, :depth_k] with n_tiles 128-column tiles
+  __device__ __forceinline__ void start(const float* P, int depth_k, int n_tiles, int lane) {
+    plane = P;
+    kdim = depth_k;
+    left = n_tiles * (depth_k / kDepth);
+    k_next = 0;
+    slot = 0;
+    for (int s = 0; s < kASlots; ++s) issue(s, lane);
+  }
+  // the stage's A is in its slot, for every lane of the warp
+  __device__ __forceinline__ void wait() const {
+    cp_async_wait<kASlots - 1>();
+    __syncwarp();
+  }
+  // A at this thread's row q (0: groupID, 1: + 8) and column c of the stage
+  __device__ __forceinline__ float operator()(int q, int c) const {
+    const int row = g + 8 * q, col = c & (kDepth - 1);
+    return ring[(slot * kRowsPerWarp + row) * kDepth + 4 * ((col >> 2) ^ swizzle(row)) +
+                (col & 3)];
+  }
+  // every lane has built its fragments: the slot takes the stage kASlots on
+  __device__ __forceinline__ void refill(int lane) {
+    __syncwarp();
+    issue(slot, lane);
+    slot = slot + 1 == kASlots ? 0 : slot + 1;
+  }
+};
+
 // One product of a warpgroup's 64-row tile with one 128-column tile of a
 // weight matrix: acc = A[tile, :kdim] * W[:kdim, n-tile], the weights taken
 // stage by stage from the ring.  load(q, c) gives A at this thread's row q
-// (0 or 1) and column c, 0 past the window's rows.  Each stage's A is built
-// (and split into hi and lo, or rounded to bf16) while the previous stage's
-// wgmmas run.  Every warpgroup runs every product, one past the window's
-// rows on zeros: a wgmma under a branch on the row count would be
-// serialised, and a chunk takes as long as its largest window anyway.
+// (0 or 1) and column c, 0 past the window's rows (PlaneA or AStager: its
+// wait() before a stage's fragments are built, its refill() after).  Each
+// stage's A is built (and split into hi and lo, or rounded to bf16) while
+// the previous stage's wgmmas run.  Every warpgroup runs every product,
+// one past the window's rows on zeros: a wgmma under a branch on the row
+// count would be serialised, and a chunk takes as long as its largest
+// window anyway.
 template <bool kBf16, class LoadA>
-__device__ __forceinline__ void tile_product(float (&acc)[64], int kdim, const LoadA& load,
+__device__ __forceinline__ void tile_product(float (&acc)[64], int kdim, LoadA& load,
                                              Ring& ring, int lane) {
   static_assert(BK == 16, "two k8 steps per stage");
   static_assert(BK_BF16 == 64, "four k16 steps per stage");
@@ -381,6 +495,7 @@ __device__ __forceinline__ void tile_product(float (&acc)[64], int kdim, const L
   Frags a[2];
   int held = -1;           // stage whose wgmmas may still be reading
   auto stage_step = [&](int k0, Frags& ab) {
+    load.wait();
     if constexpr (kBf16) {
       // A of the stage's four k16 steps; fragment f: row q = f & 1
       // (groupID, + 8), columns 2t + 8 (f >> 1) and the next, lower in the
@@ -407,6 +522,7 @@ __device__ __forceinline__ void tile_product(float (&acc)[64], int kdim, const L
       }
     }
     }
+    load.refill(lane);
     mbar_wait(&ring.full[ring.stage], ring.phase);
     const float* hi_b = ring.buf + ring.stage * kStageFloats;
     wgmma_fence();
@@ -505,13 +621,17 @@ struct Smem {
   unsigned char* f_fw;
   unsigned char* f_fp;
   float* planes; // [pool]: X (rows of mw), then H (rows of mw + kPad) if it fits
+  float* a_ring; // staged route: [kWarps][kASlots][kRowsPerWarp][stage depth]
   int* n_rows;
 };
 
 __host__ __device__ inline size_t align_up(size_t v, size_t a) { return (v + a - 1) / a * a; }
 
-// The shared-memory carve-up; with base == nullptr it only sizes it.
-__host__ __device__ inline size_t carve(char* base, int L, int mw, size_t pool, Smem* s) {
+// The shared-memory carve-up, with `pool` floats of planes and `a_ring`
+// floats of the staged route's A ring; with base == nullptr it only sizes
+// it.
+__host__ __device__ inline size_t carve(char* base, int L, int mw, size_t pool, size_t a_ring,
+                                        Smem* s) {
   size_t off = 0;
   auto take = [&](size_t bytes) {
     char* p = base ? base + off : nullptr;
@@ -533,6 +653,7 @@ __host__ __device__ inline size_t carve(char* base, int L, int mw, size_t pool, 
   char* fl = take((sizeof(int) + 4) * L);
   char* nr = take(sizeof(int));
   char* planes = take(sizeof(float) * pool);
+  char* ar = take(sizeof(float) * a_ring);
   if (s) {
     s->ring = reinterpret_cast<float*>(ring);
     s->full = reinterpret_cast<uint64_t*>(full);
@@ -553,6 +674,7 @@ __host__ __device__ inline size_t carve(char* base, int L, int mw, size_t pool, 
     s->f_fp = s->f_fw + L;
     s->n_rows = reinterpret_cast<int*>(nr);
     s->planes = reinterpret_cast<float*>(planes);
+    s->a_ring = reinterpret_cast<float*>(ar);
   }
   return off;
 }
@@ -563,7 +685,7 @@ __host__ __device__ inline size_t carve(char* base, int L, int mw, size_t pool, 
 // use the workspace.
 inline size_t pool_for(int L, int mw) {
   if (mw != BN) return 0;
-  const size_t fixed = carve(nullptr, L, mw, 0, nullptr);
+  const size_t fixed = carve(nullptr, L, mw, 0, 0, nullptr);
   const size_t x_plane = (size_t)2 * L * mw;
   if (fixed + sizeof(float) * x_plane > (size_t)kMaxSmem) return 0;
   const size_t room = ((size_t)kMaxSmem - fixed) / sizeof(float);
@@ -571,7 +693,14 @@ inline size_t pool_for(int L, int mw) {
   return (room < most ? room : most) / 4 * 4;
 }
 
-template <bool kBf16>
+// Floats of one slot of the staged route's A ring: one stage's A block of
+// every warp.
+__host__ __device__ inline size_t a_slot_floats(bool bf16) {
+  return (size_t)kWarps * kRowsPerWarp * (bf16 ? BK_BF16 : BK);
+}
+
+
+template <bool kBf16, bool kStaged>
 __global__ void __launch_bounds__(kThreads, 1)
 windows_encoder_kernel(const float* __restrict__ x0, const int* __restrict__ j_local,
                        const float* __restrict__ bp_in, const float* __restrict__ pulled,
@@ -582,7 +711,7 @@ windows_encoder_kernel(const float* __restrict__ x0, const int* __restrict__ j_l
                        int use_res, float eps, long long pool) {
   extern __shared__ __align__(1024) char smem_raw[];
   Smem s;
-  carve(smem_raw, L, mw, (size_t)pool, &s);
+  carve(smem_raw, L, mw, (size_t)pool, kStaged ? kASlots * a_slot_floats(kBf16) : 0, &s);
   K1_STAMP(0);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -672,6 +801,12 @@ windows_encoder_kernel(const float* __restrict__ x0, const int* __restrict__ j_l
   const int row_in = 16 * (warp & 3) + (lane >> 2);
   const float cnt = (float)n_rows;  // L + sum(pulled)
   float acc[64];
+  AStager<kBf16> stager;
+  if constexpr (kStaged) {
+    stager.ring = s.a_ring + (size_t)warp * kASlots * kRowsPerWarp * AStager<kBf16>::kDepth;
+    stager.g = lane >> 2;
+    stager.ld = ld;
+  }
 
   for (int li = 0; li < n_layers; ++li) {
     const long long* m = meta + kLayerMeta * li;
@@ -726,21 +861,28 @@ windows_encoder_kernel(const float* __restrict__ x0, const int* __restrict__ j_l
         }
       }
       group_sync(g);  // M of the tile is whole
-      auto plane = [&](const float* P) {
-        return [=](int q, int c) -> float {
-          return (q ? live1 : live0) ? P[(size_t)tile.r[q] * ld + c] : 0.f;
-        };
+      // out = relu(A[tile, :kdim] W + b), tile by 128-column tile
+      auto product = [&](auto& a, int kdim, float* out, const float* b) {
+        for (int n0 = 0; n0 < dout; n0 += BN) {
+          tile_product<kBf16>(acc, kdim, a, ring, lane);
+          group_sync(g);  // every warp has read A before out (maybe A's plane) is written
+          store_relu(acc, out, ld, tile, n_rows, b, n0, lane);
+        }
       };
-      for (int n0 = 0; n0 < dout; n0 += BN) {
-        tile_product<kBf16>(acc, din, plane(M), ring, lane);
-        group_sync(g);  // every warp has read M before T (maybe M) is written
-        store_relu(acc, T, ld, tile, n_rows, b0, n0, lane);
-      }
-      group_sync(g);  // T of the tile is whole
-      for (int n0 = 0; n0 < dout; n0 += BN) {
-        tile_product<kBf16>(acc, dout, plane(T), ring, lane);
-        group_sync(g);  // every warp has read T before H (maybe T) is written
-        store_relu(acc, H, ld, tile, n_rows, b1, n0, lane);
+      if constexpr (kStaged) {
+        stager.row0 = tile.base + kRowsPerWarp * (warp & 3);
+        stager.n_live = min(max(n_rows - stager.row0, 0), kRowsPerWarp);
+        stager.start(M, din, dout / BN, lane);
+        product(stager, din, T, b0);
+        group_sync(g);  // T of the tile is whole
+        stager.start(T, dout, dout / BN, lane);
+        product(stager, dout, H, b1);
+      } else {
+        PlaneA a_m{M, ld, tile.r[0], tile.r[1], live0, live1};
+        product(a_m, din, T, b0);
+        group_sync(g);  // T of the tile is whole
+        PlaneA a_t{T, ld, tile.r[0], tile.r[1], live0, live1};
+        product(a_t, dout, H, b1);
       }
     }
     __syncthreads();
@@ -832,10 +974,22 @@ windows_encoder_kernel(const float* __restrict__ x0, const int* __restrict__ j_l
 
 extern "C" {
 
+// 1 when a launch at window length L and widest layer mw on `route`
+// (0 = 3xTF32, 1 = bf16) takes the staged route: no plane in shared
+// memory, and room beside the rest for the A ring.  The launcher's rule,
+// and the one its callers count by.
+int windows_encoder_staged(int L, int mw, int route) {
+  return pool_for(L, mw) == 0 &&
+         carve(nullptr, L, mw, 0, kASlots * a_slot_floats(route == 1), nullptr) <=
+             (size_t)kMaxSmem;
+}
+
 // Dynamic shared memory one window's CTA takes at window length L and
-// widest layer mw.
-size_t windows_encoder_smem_bytes(int L, int mw) {
-  return carve(nullptr, L, mw, pool_for(L, mw), nullptr);
+// widest layer mw on `route`.
+size_t windows_encoder_smem_bytes(int L, int mw, int route) {
+  const size_t a_ring =
+      windows_encoder_staged(L, mw, route) ? kASlots * a_slot_floats(route == 1) : 0;
+  return carve(nullptr, L, mw, pool_for(L, mw), a_ring, nullptr);
 }
 
 // Active rows up to which a window keeps both its X and H planes in shared
@@ -867,8 +1021,12 @@ int windows_encoder_launch(const float* x0, const int* j_local, const float* bp_
   if (C == 0) return 0;
   if (route != 0 && route != 1) return (int)cudaErrorInvalidValue;
   const size_t pool = pool_for(L, mw);
-  const size_t smem = carve(nullptr, L, mw, pool, nullptr);
-  const auto kernel = route ? windows_encoder_kernel<true> : windows_encoder_kernel<false>;
+  const size_t smem = windows_encoder_smem_bytes(L, mw, route);
+  const bool staged = windows_encoder_staged(L, mw, route);
+  const auto kernel = route ? (staged ? windows_encoder_kernel<true, true>
+                                      : windows_encoder_kernel<true, false>)
+                            : (staged ? windows_encoder_kernel<false, true>
+                                      : windows_encoder_kernel<false, false>);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;

@@ -287,8 +287,12 @@ def forward_windows(config: GINConfig, params: dict, state: dict,
     ``packed`` is :func:`pack_params`'s result or a function that returns
     it (``GINModel.packed_windows``), read only on the kernel's route and
     made there when not given.  Each kernel launch adds one to
-    ``forward_windows.launches``, and each launch of the bf16 route also
-    one to ``forward_windows.bf16_launches``."""
+    ``forward_windows.launches``, each launch of the bf16 route also one
+    to ``forward_windows.bf16_launches``, and each launch that stages the
+    products' A operand through shared memory (no plane in shared memory,
+    as for every model wider than 128, and room for the ring: the
+    library's ``windows_encoder_staged``, which its launcher follows) one
+    to ``forward_windows.staged_launches``."""
     args = (config, params, state, x0, j_local, bp_in, pulled, fwd_into_w, fwd_into_p, L)
     if not windows_kernel_ok(config):
         return forward_windows_reference(*args, exact_gather=True)
@@ -320,8 +324,9 @@ def forward_windows(config: GINConfig, params: dict, state: dict,
     if packed.precision != config.matmul_precision:
         raise ValueError(f"parameters packed for precision {packed.precision!r}, the config "
                          f"asks for {config.matmul_precision!r}")
-    mw = packed.max_width
-    smem = _build.library().windows_encoder_smem_bytes(L, mw)
+    mw, route = packed.max_width, ROUTES[config.matmul_precision]
+    lib = _build.library()
+    smem = lib.windows_encoder_smem_bytes(L, mw, route)
     if smem > _build.HOPPER_SMEM_OPTIN:
         raise ValueError(f"window length {L} needs {smem} bytes of shared memory "
                          f"per CTA; the card offers {_build.HOPPER_SMEM_OPTIN}")
@@ -339,12 +344,14 @@ def forward_windows(config: GINConfig, params: dict, state: dict,
         packed.meta.data_ptr(), workspace.data_ptr(), out.data_ptr(),
         C, L, len(dims), mw, config.output_dim,
         int(config.pooling_type == "global_mean_pool"), _NORM_MODES[norm],
-        int(config.use_residual), ROUTES[config.matmul_precision], float(config.eps),
+        int(config.use_residual), route, float(config.eps),
     )
     forward_windows.launches += 1
     forward_windows.bf16_launches += config.matmul_precision == "bf16"
+    forward_windows.staged_launches += lib.windows_encoder_staged(L, mw, route)
     return out
 
 
 forward_windows.launches = 0
 forward_windows.bf16_launches = 0
+forward_windows.staged_launches = 0

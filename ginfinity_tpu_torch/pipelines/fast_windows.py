@@ -421,6 +421,7 @@ def embed_corpus_windows(model: GINModel, structures, L: int, keep_paired_neighb
     on = _replicas(model, mesh)
     empty = (np.zeros(0, np.int64), np.zeros((0, cfg.output_dim), np.float32))
     with trace.span("windows.embed") as sp:
+        staged = forward_windows.staged_launches
         with trace.span("windows.prep"):
             per, groups = _prep_corpus_groups(
                 cfg, structures, L, keep_paired_neighbors, mask_threshold, max_programs
@@ -440,6 +441,7 @@ def embed_corpus_windows(model: GINModel, structures, L: int, keep_paired_neighb
                 starts = per[i][4]
                 results[i] = (starts.astype(np.int64), emb_np[off:off + starts.size])
                 off += starts.size
+        sp.add(staged_launches=forward_windows.staged_launches - staged)
     return results
 
 

@@ -190,6 +190,7 @@ def test_window_span_tree_and_outputs(kw):
     groups, chunks = root.counts["groups"], root.counts["chunks"]
     assert root.counts["windows"] == sum(len(s) for s, _ in on) > 0
     assert groups > 1 and chunks >= groups
+    assert root.counts["staged_launches"] == 0  # the plain version on the CPU
     assert counts == {"windows.embed": 1, "windows.prep": 1, "windows.pack": groups,
                       "windows.upload": groups, "windows.build": chunks,
                       "windows.encoder": chunks, "windows.download": groups}

@@ -166,6 +166,19 @@ def test_pack_params_matches_pallas_packing(name):
     np.testing.assert_array_equal(seg(tail[2], (out_dim,)), fc[h_last])
 
 
+def test_staged_launch_count_starts_at_zero_and_cpu_launches_nothing():
+    """``forward_windows.staged_launches`` counts the launches of the
+    kernel's staged route (every model wider than 128); a CPU tensor takes
+    the plain version and adds to no count."""
+    assert we.forward_windows.staged_launches == 0
+    kw, L = CASES["widths_256_512_512"]
+    _, _, _, pc, pp, ps = _models(kw)
+    x0, flags = _chunk(pc, pp, L)
+    we.forward_windows(pc, pp, ps, x0, *flags, L)
+    assert (we.forward_windows.launches, we.forward_windows.bf16_launches,
+            we.forward_windows.staged_launches) == (0, 0, 0)
+
+
 def test_wrapper_rejects_other_devices_without_fallback():
     kw, L = CASES["flagship_mean_zscore_l2"]
     pc = GINConfig(**kw)
