@@ -6,8 +6,8 @@ benchmark's own runs never do.
 - ``altered``: an answer changed where it is produced (an embedding
   entry, a step's loss, a score and a path);
 - ``half``: half of a batch left out (half of each transcript's
-  windows; the loss's mean over half of the subset; the DP run on half
-  of the pairs, its answers copied to the rest);
+  windows; the loss's mean over half of the subset; the batch step run
+  on half of the pairs, its answers copied to the rest);
 - ``unchanged``: a train step that returns its state unchanged;
 - ``late``: a train step that returns its state unchanged once the
   traffic's checked first steps are past, as a fast path that starts
@@ -45,7 +45,7 @@ def _train(mod, name):
         def make(cfg, loss_fn, mesh=None):
             real, calls = real_make(cfg, loss_fn), [0]
 
-            def step(ts, batch, gen, marks=None):
+            def step(ts, batch, gen):
                 calls[0] += 1
                 if name == "late" and calls[0] <= CHECKED_STEPS:
                     return real(ts, batch, gen)
@@ -74,21 +74,21 @@ def _train(mod, name):
 
 
 def _align(mod, name):
-    real = mod.affine_align_batch
+    real = mod.pair_batch
 
-    def align(sims, *a, **kw):
+    def batch(mats, chunk, *a, **kw):
         if name == "half":
-            done = real(sims[: max(1, len(sims) // 2)], *a, **kw)
-            return [done[k % len(done)] for k in range(len(sims))]
-        out = real(sims, *a, **kw)
+            sims, done = real(mats, chunk[: max(1, len(chunk) // 2)], *a, **kw)
+            return sims, [done[k % len(done)] for k in range(len(chunk))]
+        sims, out = real(mats, chunk, *a, **kw)
         for k in range(0, len(out), 4):
             out[k] = (out[k][0] + 1e-2, out[k][1])
             if k + 1 < len(out) and len(out[k + 1][1]) > 1:
                 path = out[k + 1][1]
                 out[k + 1] = (out[k + 1][0], path[:-2] + path[-1:] + path[-2:-1])
-        return out
+        return sims, out
 
-    mod.affine_align_batch = align
+    mod.pair_batch = batch
 
 
 def plant(kind_module, kind: str, name: str) -> None:

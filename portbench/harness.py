@@ -89,14 +89,12 @@ def load_cell(name: str) -> Cell:
 
 class Env:
     """What a kind sees of a run: the device, the seed, the cell's data,
-    the set-up split and the host spans of the window."""
+    the set-up split and the marks of the traced segment."""
 
     def __init__(self, cell: Cell, seed: int, device: torch.device, trace: bool):
         self.seed, self.device, self.trace = seed, device, trace
         self.config, self.traffic = cell.config, cell.traffic
         self.split: dict = {}
-        self.spans: dict = {}       # name -> host seconds of each call
-        self.events: dict = {}      # name -> [(start, end)] CUDA events (traced runs)
         self.marks: list = []       # (name, wall start ns, wall end ns) while profiling
         self.notes: dict = {}       # numbers the check reads but does not compare
         self.profiling = False
@@ -111,20 +109,13 @@ class Env:
         self.split[name] = self.split.get(name, 0.0) + time.perf_counter() - t0
 
     @contextlib.contextmanager
-    def span(self, name: str, device_events: bool = False):
-        """A call into one layer: host seconds always; with
-        ``device_events`` in a traced run, CUDA events around it too."""
-        ev = None
-        if device_events and self.trace and self.device.type == "cuda":
-            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-            ev[0].record()
-        w0, t0 = time.time_ns(), time.perf_counter()
+    def span(self, name: str):
+        """A call into the program, marked on the wall clock while the
+        profiler runs: it labels the idle gaps that no program span
+        holds."""
+        w0 = time.time_ns() if self.profiling else None
         yield
-        self.spans.setdefault(name, []).append(time.perf_counter() - t0)
-        if ev is not None:
-            ev[1].record()
-            self.events.setdefault(name, []).append(ev)
-        if self.profiling:
+        if w0 is not None:
             self.marks.append((name, w0, time.time_ns()))
 
 
@@ -169,11 +160,14 @@ def sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def summarise_trace(events, marks, t0_ns: int, t1_ns: int) -> dict:
+def summarise_trace(events, marks, t0_ns: int, t1_ns: int, program_spans=()) -> dict:
     """Device time by operation, the union of device activity and the
-    longest idle gaps (labelled by the host span around them) inside
-    ``[t0_ns, t1_ns]``.  ``events``: ``(name, start ns, duration ns)`` of
-    every device-side activity in the profile."""
+    longest idle gaps inside ``[t0_ns, t1_ns]``.  ``events``: ``(name,
+    start ns, duration ns)`` of every device-side activity in the profile.
+    A gap is labelled by the innermost program span (the latest to start,
+    of ``program_spans``, the program's records on the same wall clock)
+    that holds its midpoint, else by the harness's mark (``marks``) that
+    holds it, else ``"between calls"``."""
     spans = sorted((max(s, t0_ns), min(s + d, t1_ns), n) for n, s, d in events
                    if s + d > t0_ns and s < t1_ns)
     by_name: dict = {}
@@ -189,8 +183,11 @@ def summarise_trace(events, marks, t0_ns: int, t1_ns: int) -> dict:
 
     def label(a, b):
         mid = (a + b) // 2
-        inside = [n for n, s, e in marks if s <= mid <= e]
-        return inside[-1] if inside else "between calls"
+        held = [(r.start_ns, r.name) for r in program_spans if r.start_ns <= mid <= r.end_ns]
+        if held:
+            return max(held)[1]
+        marked = [n for n, s, e in marks if s <= mid <= e]
+        return marked[-1] if marked else "between calls"
 
     gaps.sort(key=lambda g: g[0] - g[1])
     return {
@@ -216,14 +213,12 @@ def device_events(prof) -> list:
 @dataclasses.dataclass
 class Reading:
     """What a per-layer metric's reader gets: the window's counts and
-    length, the traced segment's counts and trace, the host spans, the
-    CUDA-event spans (ms) and the peak table."""
+    length, the traced segment's counts and trace, and the peak table.
+    The program's spans it reads through ``portbench/spans.py``."""
 
     window_s: float
     counts: dict
     traced_counts: dict
-    spans: dict
-    events_ms: dict
     trace: dict | None
     peaks: dict
 

@@ -6,10 +6,15 @@ lengths spread over the traffic's range, the same for every seed) and
 makes every member's node embeddings with the program, as
 ``pipelines/node_embed.py`` does (graphs built and cut to the model's
 feature width, batched inference, zscore_l2 rows of the bases).  Each
-request is one batch of the CLI's loop over the pairs ``i < j`` in order:
-``cosine_similarity_matrix`` for each pair on the host, then
-``affine_align_batch`` (K2 on the card, host un-shear and traceback).
-Of the finished pairs' scores and paths only the check's sample is kept
+request is one batch of the CLI's loop over the pairs ``i < j`` in order,
+made by one call of the program's batch step (``pair_batch``):
+``pipelines/align_batch.py::align_pair_batch(mats, chunk, gap_open,
+gap_extend, mode, device=None, mesh=None) -> (sims, results)``, the step
+the CLI's ``main`` runs.  A program without that function gets the CLI's
+loop as it stands there: ``cosine_similarity_matrix`` for each pair on
+the host, then ``ops/dp.py::affine_align_batch`` (packing, K2 and the
+walk kernel on the card, the decode on the host).  Of the finished
+pairs' scores and paths only the check's sample is kept
 (``harness.Sample``: the largest pair and a reservoir drawn from the
 seed).
 
@@ -31,6 +36,7 @@ import torch
 
 from ginfinity_tpu_torch.models.gine import GINConfig, GINModel
 from ginfinity_tpu_torch.ops.dp import affine_align_batch
+from ginfinity_tpu_torch.pipelines import align_batch as align_batch_cli
 from ginfinity_tpu_torch.pipelines.align import cosine_similarity_matrix
 from ginfinity_tpu_torch.pipelines.engine import InferenceEngine, preprocess_structures
 from portbench import gen, weights
@@ -45,6 +51,16 @@ from portbench.reference.precision import matmul
 
 class State:
     pass
+
+
+def cli_loop(mats, chunk, gap_open, gap_extend, mode, device=None, mesh=None):
+    """The CLI's batch, for a program without ``align_pair_batch``: each
+    pair's similarity on the host, then one ``affine_align_batch``."""
+    sims = [cosine_similarity_matrix(mats[i], mats[j]).astype(np.float32) for i, j in chunk]
+    return sims, affine_align_batch(sims, gap_open, gap_extend, mode, device=device, mesh=mesh)
+
+
+pair_batch = getattr(align_batch_cli, "align_pair_batch", None) or cli_loop
 
 
 def setup(env):
@@ -78,16 +94,13 @@ def call(S, env) -> Work:
     t = env.traffic
     chunk = [S.pairs[(S.cursor + k) % len(S.pairs)] for k in range(t["batch_pairs"])]
     S.cursor += len(chunk)
-    with env.span("align.similarity"):
-        sims = [cosine_similarity_matrix(S.mats[i], S.mats[j]).astype(np.float32)
-                for i, j in chunk]
-    with env.span("align.dp"):
-        results = affine_align_batch(sims, t["gap_open"], t["gap_extend"], t["mode"],
-                                     device=env.device)
+    with env.span("align.batch"):
+        _, results = pair_batch(S.mats, chunk, t["gap_open"], t["gap_extend"], t["mode"],
+                                device=env.device)
     if S.sample is not None:
         for (i, j), r in zip(chunk, results):
             S.sample.offer((i, j), len(S.structures[i]) * len(S.structures[j]), r)
-    shapes = [s.shape for s in sims]
+    shapes = [(len(S.mats[i]), len(S.mats[j])) for i, j in chunk]
     d = S.mats[chunk[0][0]].shape[1]
     return Work(len(chunk), {"k2_bytes": sum(k2_counts.nbytes(a, b) for a, b in shapes),
                              "k2_ops": sum(k2_counts.ops(a, b) for a, b in shapes),

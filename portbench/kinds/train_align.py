@@ -179,7 +179,7 @@ def call(S, env) -> Work:
         on_dev = batch.to(env.device)
     if S.snap is not None:
         S.late = dict(_snapshot(S), groups=groups, rng=S.last_rng)
-    with env.span("train.step", device_events=True):
+    with env.span("train.step"):
         S.ts, S.last_loss = S.step(S.ts, on_dev, S.gen)
     rows, subset = float(batch.graphs.node_mask.sum()), float(batch.valid.sum())
     graphs = int((batch.graphs.n_nodes > 0).sum())

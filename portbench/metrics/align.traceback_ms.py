@@ -1,7 +1,8 @@
-"""``align.traceback_ms``: the host's Python walk of each pair's path
-(``ops/dp.py::_traceback_global`` or ``_traceback_local``, span
-``dp.traceback``), milliseconds per ``affine_align_batch`` call (span
-``dp.align_batch``)."""
+"""``align.traceback_ms``: the walk of each pair's path and its way to
+the host (span ``dp.traceback``: ``ops/dp_traceback.py::dp_traceback``,
+the walk kernel on the card's codes, the download of the scores and
+paths into pinned memory, the decode into step lists), milliseconds per
+``affine_align_batch`` call (span ``dp.align_batch``)."""
 
 from portbench import spans
 

@@ -1,8 +1,11 @@
-"""``train.assembly_ms``: the host clock around each call of
-``training/data.py::assemble_alignment_batch`` (graphs packed, labels,
-the mined subset), mean milliseconds a batch."""
+"""``train.assembly_ms``: each call of
+``training/data.py::assemble_alignment_batch`` (root span
+``train.assembly``: graphs packed, labels, the mined subset), mean host
+milliseconds a batch."""
+
+from portbench import spans
 
 
 def read(r):
-    s = r.spans.get("train.assembly")
-    return 1e3 * sum(s) / len(s) if s else None
+    ms = spans.root_ms("train.assembly")
+    return sum(ms) / len(ms) if ms else None

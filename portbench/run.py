@@ -158,7 +158,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device, t_start=None,
     under ``"_log"``, what the earlier lines print."""
     import torch
 
-    from portbench import harness
+    from portbench import harness, spans
 
     t_start = T_START if t_start is None else t_start
     env = harness.Env(cell, seed, device, trace)
@@ -171,8 +171,6 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device, t_start=None,
     setup_s = time.perf_counter() - t_start
 
     window_calls, durations = [], []
-    env.spans.clear()
-    env.events.clear()
     # set-up's objects leave the collector's scans; the program's own
     # garbage is still collected in the window
     gc.collect()
@@ -190,6 +188,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device, t_start=None,
         from torch.profiler import ProfilerActivity, profile
 
         acts = [ProfilerActivity.CUDA] if device.type == "cuda" else [ProfilerActivity.CPU]
+        spans.clear()  # the program's spans from here on are the segment's
         with profile(activities=acts) as prof:
             harness.sync(device)
             env.profiling = True
@@ -198,7 +197,8 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device, t_start=None,
             w1 = time.time_ns()
             env.profiling = False
         summary = harness.summarise_trace(
-            harness.device_events(prof) if device.type == "cuda" else [], env.marks, w0, w1)
+            harness.device_events(prof) if device.type == "cuda" else [], env.marks, w0, w1,
+            spans.recorded() or [])
     peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
     launches = launch_counters()
 
@@ -210,8 +210,6 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device, t_start=None,
 
     if trace:
         r = harness.Reading(window_s, _sum_counts(window_calls), _sum_counts(traced_calls),
-                            dict(env.spans),
-                            {k: [a.elapsed_time(b) for a, b in v] for k, v in env.events.items()},
                             summary, harness.peaks())
         metrics = {}
         for m in cell.per_layer:

@@ -74,3 +74,34 @@ def test_a_planted_fault_is_not_correct(name, fault):
     faults.plant(cell.kind, cell.traffic["kind"], fault)
     res = run_cell(cell, SEED, 0.3, False, torch.device("cpu"))
     assert res["correct"] is False, res["checked"]
+
+
+def test_align_kind_calls_the_program_batch_step_or_runs_the_cli_loop(monkeypatch):
+    """With the program's batch step the kind makes one call of it a
+    request; with it hidden, as in a program that lacks it, the kind runs
+    the CLI's loop itself; the work counted and the sample are the same."""
+    from ginfinity_tpu_torch.pipelines import align_batch
+
+    # the program's step, or the kind's copy of the CLI's loop in a program without it
+    step = getattr(align_batch, "align_pair_batch", None) or \
+        tiny_cell("align-allpairs.packaged-6x128").kind.cli_loop
+    calls = []
+
+    def counted(mats, chunk, *a, **kw):
+        calls.append(len(chunk))
+        return step(mats, chunk, *a, **kw)
+
+    def run():
+        cell = tiny_cell("align-allpairs.packaged-6x128")
+        env = harness.Env(cell, SEED, torch.device("cpu"), False)
+        S = cell.kind.setup(env)
+        works = [cell.kind.call(S, env) for _ in range(5)]
+        return cell.kind, works, S.sample.picks()
+
+    monkeypatch.setattr(align_batch, "align_pair_batch", counted, raising=False)
+    kind, works, picks = run()
+    assert kind.pair_batch is counted and calls == [8] * 6  # the warm-up, then 5
+    monkeypatch.delattr(align_batch, "align_pair_batch")
+    hidden, works_hidden, picks_hidden = run()
+    assert hidden.pair_batch is hidden.cli_loop and len(calls) == 6
+    assert works == works_hidden and picks == picks_hidden and len(picks) == 36
