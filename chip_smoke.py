@@ -704,17 +704,21 @@ def ptxas_summary(log: str) -> dict:
     """ptxas's registers, stack and spills of every kernel in ``build.log``,
     by kernel; the warp route's instantiations as ``dp_warp_kernel<R,
     global|local>``, K1's routes as ``windows_encoder_kernel<3xtf32|bf16>``
-    and, staged, ``windows_encoder_kernel<3xtf32|bf16, staged>``."""
+    and, staged, ``windows_encoder_kernel<3xtf32|bf16, staged>``, the loss's
+    templates as ``contrastive_*_kernel<double|float>``."""
     out = {}
     for name, props, used in re.findall(
             r"Function properties for (\S+)\n\s*(.*)\nptxas info\s*: (Used .*)", log):
-        m = re.search(r"(\w+_kernel)(?:ILi(\d+)ELb([01])E|ILb([01])E(?:Lb([01])E)?)?E", name)
+        m = re.search(r"(\w+_kernel)(?:ILi(\d+)ELb([01])E|ILb([01])E(?:Lb([01])E)?"
+                      r"|I([df])E)?E", name)
         short = re.sub(r"^.*\d", "", m.group(1)) if m else name
         if m and m.group(2):
             short += f"<{m.group(2)}, {'local' if m.group(3) == '1' else 'global'}>"
         elif m and m.group(4):
             short += ("<bf16" if m.group(4) == "1" else "<3xtf32") + (
                 ", staged>" if m.group(5) == "1" else ">")
+        elif m and m.group(6):
+            short += "<double>" if m.group(6) == "d" else "<float>"
         out[short] = f"{used.strip()}; {props.strip()}"
     return out
 

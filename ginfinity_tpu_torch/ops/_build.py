@@ -50,10 +50,11 @@ ENTRY_POINTS = {
     "dp_wavefront_smem_optin": (_I, [_I]),
     "dp_traceback_launch": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P]),
     "value_traceback_launch": (_I, [_P, _P, _P, _I, _I, _I, _P, _P]),
+    "contrastive_loss_scratch_bytes": (ctypes.c_size_t, [_I, _I, _I, _I]),
     "contrastive_loss_forward": (_I, [_I, _P, _I, _I, _P, _P, _P, _D, _D, _I,
-                                      _P, _P, _P, _P, _P, _P, _P]),
+                                      _P, _P, _P, _P, _P, _P, _P, _P]),
     "contrastive_loss_backward": (_I, [_I, _P, _I, _I, _P, _P, _P, _D, _D, _I,
-                                       _P, _P, _P, _P, _P, _P]),
+                                       _P, _P, _P, _P, _P, _P, _P]),
 }
 
 

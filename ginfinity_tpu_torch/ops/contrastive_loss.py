@@ -10,7 +10,10 @@ hand-written kernel ``csrc/contrastive_loss.cu``: a tiled forward with
 an online log-sum-exp, and a backward that recomputes each cosine tile
 and adds ``(G + G^T) x`` from closed-form weights, so that no M x M
 tensor is made.  Its loss and gradient are those of the plain loss, to
-float32 accuracy (float64 inputs run the same tiles in float64).
+float32 accuracy (float64 inputs run the same algorithm in float64).
+In float32 each call first writes the TF32 hi and lo planes of the rows
+(and, for the backward, of their transpose) into a scratch buffer that
+the wrapper allocates at the size the library asks for.
 
 :func:`contrastive_loss_blockwise` is the kernel's algorithm in plain
 PyTorch, column tile by column tile (an ``[M, block]`` tensor at a
@@ -25,7 +28,8 @@ import torch
 
 from ginfinity_tpu_torch.ops import _build
 
-# depth of a cosine stage: D is padded with zero columns to a multiple
+# D is padded with zero columns to a multiple of this (the float32 route's
+# pack kernel takes 32 columns a block, the float64 route's cosine stage 16)
 _BK = {torch.float32: 32, torch.float64: 16}
 _ROWS_PER_CTA = 64
 
@@ -72,6 +76,13 @@ def _padded(x: torch.Tensor) -> torch.Tensor:
     return x if dp == d else torch.nn.functional.pad(x, (0, dp - d))
 
 
+def _scratch(is_double: int, m: int, dp: int, backward: int,
+             dev: torch.device) -> torch.Tensor:
+    """The kernel's scratch for one call, as many bytes as the library asks."""
+    n = _build.library().contrastive_loss_scratch_bytes(is_double, m, dp, backward)
+    return torch.empty(n, dtype=torch.uint8, device=dev)
+
+
 class _Loss(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, lab, grp, flags, temperature, margin):
@@ -86,10 +97,13 @@ class _Loss(torch.autograd.Function):
         part_i = torch.empty(2 * nblk, dtype=torch.int64, device=dev)
         loss = torch.empty((), dtype=x.dtype, device=dev)
         stats = torch.empty(3, **f64)
-        _build.call("contrastive_loss_forward", dev, int(x.dtype == torch.float64),
+        is_double = int(x.dtype == torch.float64)
+        scratch = _scratch(is_double, m, dp, 0, dev)
+        _build.call("contrastive_loss_forward", dev, is_double,
                     xp.data_ptr(), m, dp, lab.data_ptr(), grp.data_ptr(), flags.data_ptr(),
                     temperature, margin, int(margin > 0.0), lse.data_ptr(), pcount.data_ptr(),
-                    part_f.data_ptr(), part_i.data_ptr(), loss.data_ptr(), stats.data_ptr())
+                    part_f.data_ptr(), part_i.data_ptr(), loss.data_ptr(), stats.data_ptr(),
+                    scratch.data_ptr())
         contrastive_loss.launches += 1
         ctx.save_for_backward(xp, lab, grp, flags, lse, pcount, stats)
         ctx.d, ctx.temperature, ctx.margin = x.shape[1], temperature, margin
@@ -103,10 +117,13 @@ class _Loss(torch.autograd.Function):
         dev = xp.device
         grad = grad.to(xp.dtype).contiguous()
         dx = torch.empty_like(xp)
-        _build.call("contrastive_loss_backward", dev, int(xp.dtype == torch.float64),
+        is_double = int(xp.dtype == torch.float64)
+        scratch = _scratch(is_double, m, dp, 1, dev)
+        _build.call("contrastive_loss_backward", dev, is_double,
                     xp.data_ptr(), m, dp, lab.data_ptr(), grp.data_ptr(), flags.data_ptr(),
                     ctx.temperature, ctx.margin, int(ctx.margin > 0.0), lse.data_ptr(),
-                    pcount.data_ptr(), stats.data_ptr(), grad.data_ptr(), dx.data_ptr())
+                    pcount.data_ptr(), stats.data_ptr(), grad.data_ptr(), dx.data_ptr(),
+                    scratch.data_ptr())
         contrastive_loss.backward_launches += 1
         return dx[:, :ctx.d], None, None, None, None, None
 

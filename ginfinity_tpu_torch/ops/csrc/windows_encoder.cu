@@ -80,7 +80,11 @@
 
 #include <type_traits>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace hopper;
 
 constexpr int kGroups = 3;                   // warpgroups
 constexpr int kThreads = 128 * kGroups;
@@ -113,50 +117,6 @@ __device__ __forceinline__ float div_rn(float a, float b, float rb) {
   return __fmaf_rn(__fmaf_rn(-b, q, a), rb, q);
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// ---- mbarriers and the bulk copy ----------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// Spins until the phase of the given parity completes; a phase that never
-// completes (a lost arrival) traps after about a second instead of hanging.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  for (uint32_t tries = 0; !done; ++tries) {
-    if (tries == (1u << 26)) __trap();
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  }
-}
-
-__device__ __forceinline__ void bulk_load(float* dst, const float* src, uint32_t bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
 // 16 bytes from global to shared memory, asynchronously; `bytes` of them
 // are read (16 or 0), the rest zero-filled
 __device__ __forceinline__ void cp_async16(float* dst, const float* src, uint32_t bytes) {
@@ -182,13 +142,6 @@ __device__ __forceinline__ void group_sync(int g) {
 
 // ---- wgmma ----------------------------------------------------------------
 
-// Shared-memory matrix descriptor, no swizzle: 8 x 16-byte core matrices;
-// lbo = bytes between core matrices along K, sbo = along M/N.
-__device__ __forceinline__ uint64_t make_desc(const float* p, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((smem_addr(p) & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32);
-}
-
 // {lo, hi} rounded to bf16 (to nearest, ties to even) and packed into one
 // register, lo in the low half: the element of the lower column, as a bf16
 // wgmma A fragment holds two neighbouring columns.
@@ -201,29 +154,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // v rounded to bf16 (to nearest, ties to even), as a float
 __device__ __forceinline__ float round_bf16(float v) {
   return __uint_as_float(pack_bf16(v, 0.f) << 16);
-}
-
-// v rounded to tf32 as cvt.rna.tf32.f32 rounds it (to nearest, ties away
-// from zero), in two integer operations on the integer pipe (256 roundings
-// per thread a layer at width 128).
-__device__ __forceinline__ uint32_t to_tf32(float v) {
-  return (__float_as_uint(v) + 0x1000u) & 0xFFFFE000u;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // d[64 x 128] += a[64 x 8] (registers, tf32) * b[8 x 128] (shared, K-major)
@@ -487,7 +417,7 @@ __device__ __forceinline__ void tile_product(float (&acc)[64], int kdim, LoadA& 
   constexpr int kDepth = kBf16 ? BK_BF16 : BK;
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = 0.f;
-  fence_acc(acc);  // the accumulators are touched only here and after the
+  fence_regs(acc);  // the accumulators are touched only here and after the
                    // last wait: a use while a wgmma is in flight would wait
   const int t = lane & 3;
   // [buffer] then 3xTF32: [k8 step][hi, lo][fragment]; bf16: [k16 step][fragment]
@@ -554,7 +484,7 @@ __device__ __forceinline__ void tile_product(float (&acc)[64], int kdim, LoadA& 
     stage_step(k0 + kDepth, a[1]);
   }
   wgmma_wait<0>();
-  fence_acc(acc);
+  fence_regs(acc);
   ring.release(held, lane);
 }
 

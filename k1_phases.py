@@ -104,8 +104,8 @@ def build(tmp: str, source) -> tuple[dict, dict]:
         with open(cu, "w") as f:
             f.write("#define K1_PROFILE\n" + text)
         procs[name] = subprocess.Popen(
-            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-shared", "-o",
-             os.path.join(tmp, f"lib{name}.so"), cu],
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-shared",
+             "-o", os.path.join(tmp, f"lib{name}.so"), cu],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
     for name, p in procs.items():

@@ -194,3 +194,52 @@ def test_kernel_small_shapes(cuda_device, m, d, margin, temperature):
         assert float((x.grad.double() - dx64).abs().max()) <= tol * scale, dtype
     assert float(L.alignment_contrastive_loss(emb, labels, gids, cats, valid, cfg)) == \
         pytest.approx(float(want), rel=1e-5, abs=1e-7)
+
+
+def _float32_route(dev, m, d, margin, distinct_labels=False, temperature=0.1):
+    """The float32 kernel route twice on normalised random float32 rows, and
+    the float64 twin on the same rows: ``(runs, (loss64, dx64))``, each run
+    ``(loss, dloss/dx)``."""
+    emb, labels, gids, cats, valid = _inputs(7 * m + d, m, d=d, n_labels=max(2, m // 8),
+                                             n_graphs=5, dtype=np.float32)
+    if distinct_labels:
+        labels = torch.arange(m, dtype=torch.int64)
+    emb, labels, gids, cats, valid = (t.to(dev) for t in (emb, labels, gids, cats, valid))
+    x32 = _normalise(emb.double()).float()
+    want = CL.contrastive_loss_blockwise(x32.double(), labels, gids, cats, valid, temperature,
+                                         margin, block=1024)
+    runs = []
+    for _ in range(2):
+        x = x32.clone().requires_grad_(True)
+        got = CL.contrastive_loss(x, labels, gids, cats, valid, temperature, margin)
+        got.backward()
+        runs.append((got.detach(), x.grad))
+    return runs, want
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("margin", [0.0, 0.2])
+@pytest.mark.parametrize("d", [64, 500, 512])
+@pytest.mark.parametrize("m", [1, 63, 1000, 4097, 32768])
+def test_float32_route_against_float64_twin(cuda_device, m, d, margin):
+    """The float32 route (3xTF32 ``wgmma``) at ragged M and D: loss and
+    gradient within 1e-5 of the float64 twin on the same rows (relative;
+    the gradient's largest element gap over its largest element), and a
+    second call on the same inputs equal bit for bit."""
+    runs, (want, dx64) = _float32_route(cuda_device, m, d, margin)
+    (got, g), (got2, g2) = runs
+    assert torch.equal(got, got2) and torch.equal(g, g2)
+    scale = max(float(dx64.abs().max()), 1e-30)
+    assert abs(float(got) - float(want)) <= 1e-5 * max(abs(float(want)), 1e-30)
+    assert float((g.double() - dx64).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("margin", [0.0, 0.2])
+def test_float32_route_without_positives(cuda_device, margin):
+    """Distinct labels everywhere: no positive pair, so the loss and its
+    gradient are exactly 0, twice."""
+    runs, (want, dx64) = _float32_route(cuda_device, 1000, 500, margin, distinct_labels=True)
+    assert float(want) == 0.0 and float(dx64.abs().max()) == 0.0
+    for got, g in runs:
+        assert float(got) == 0.0 and float(g.abs().max()) == 0.0

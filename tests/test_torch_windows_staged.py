@@ -278,8 +278,8 @@ def reference_library(cuda_device, tmp_path_factory):
         pytest.skip(f"no reference source at {REFERENCE_SOURCE.relative_to(ROOT)} (put "
                     "there the windows_encoder.cu to compare with)")
     lib = tmp_path_factory.mktemp("k1_reference") / "libk1_reference.so"
-    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-shared", "-o", str(lib),
-                    str(REFERENCE_SOURCE)], check=True, capture_output=True)
+    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-shared",
+                    "-o", str(lib), str(REFERENCE_SOURCE)], check=True, capture_output=True)
     import k1_phases
 
     return k1_phases.bind_windows_library(lib, REFERENCE_SOURCE.read_text())
